@@ -1,0 +1,221 @@
+"""Wrappers of the CUDA hash-table kernels (``csrc/hash_probe.cu``).
+
+The APU's data-structure walker does three dependent memory accesses per
+GET (primary bucket, overflow bucket, value row) and four per PUT:
+
+  ``probe``          buckets in, found flag + pool pointer out
+  ``fetch``          value rows gathered at the resolved pointers
+  ``cache_probe``    hot-set cache set lookup (before the bucket walk)
+  ``commit_buckets`` PUT scatter pass 1: the chosen way of each bucket
+  ``write_rows``     PUT scatter pass 2: value rows into the pool
+
+``get`` composes probe and fetch, ``insert`` the two scatter passes. The
+wrappers take CUDA tensors only (the dispatcher in ``ops`` sends CPU
+tensors to the plain versions in ``ref``), check dtype, shape and
+contiguity, allocate the outputs, launch on the current stream without
+synchronising, and raise if the launch is refused. The commit wrappers
+update the state arrays IN PLACE, like the TPU kernels'
+``input_output_aliases``.
+
+``launches`` counts, per kernel, the launches made since the last
+:func:`reset_launches`: each wrapper adds one where it launches and
+nowhere else, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+I32 = torch.int32
+KERNELS = ("probe", "fetch", "cache_probe", "commit_buckets", "write_rows")
+launches = dict.fromkeys(KERNELS, 0)
+
+_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "orca_probe": [_P] * 7 + [_LL, _LL, _I, _I, _P],
+    "orca_fetch": [_P] * 3 + [_LL, _LL, _I, _P],
+    "orca_cache_probe": [_P] * 8 + [_LL, _LL, _I, _I, _I, _P],
+    "orca_commit_buckets": [_P] * 6 + [_LL, _LL, _I, _I, _P],
+    "orca_write_rows": [_P] * 3 + [_LL, _LL, _I, _P],
+}
+_typed: dict = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _entry(name: str):
+    """The typed C entry point ``name`` of the hash_probe library."""
+    fn = _typed.get(name)
+    if fn is None:
+        lib = _build.load("hash_probe")
+        fn = getattr(lib, name)
+        fn.argtypes = _SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _typed[name] = fn
+    return fn
+
+
+def _launch(kernel: str, entry: str, device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _entry(entry)(*args, stream)
+    _build.check(_build.load("hash_probe"), code, f"hash_probe.{kernel}")
+    launches[kernel] += 1
+
+
+def _check(name: str, t: torch.Tensor, ndim: int, device,
+           dtype=I32) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"{name}: the CUDA kernel takes CUDA tensors, got {t.device} "
+            "(CPU tensors go to the plain versions: backend auto or ref)"
+        )
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _same(name: str, got, want) -> None:
+    if tuple(got) != tuple(want):
+        raise ValueError(f"{name}: shape {tuple(got)}, expected {tuple(want)}")
+
+
+def probe(bucket_keys, bucket_ptr, keys, h1, h2):
+    """bucket_keys: (NB + 1, W, KW); bucket_ptr: (NB + 1, W) — the
+    sentinel-resident layout; keys: (B, KW); h1/h2: (B,) bucket ids in
+    [0, NB]. Returns (found (B,) bool, ptr (B,) int32; ptr 0 on a miss)."""
+    dev = keys.device
+    _check("keys", keys, 2, dev)
+    b, kw = keys.shape
+    _check("bucket_keys", bucket_keys, 3, dev)
+    rows, w = bucket_keys.shape[:2]
+    _same("bucket_keys", bucket_keys.shape, (rows, w, kw))
+    _check("bucket_ptr", bucket_ptr, 2, dev)
+    _same("bucket_ptr", bucket_ptr.shape, (rows, w))
+    for name, t in (("h1", h1), ("h2", h2)):
+        _check(name, t, 1, dev)
+        _same(name, t.shape, (b,))
+    found = torch.empty((b,), dtype=torch.bool, device=dev)
+    ptr = torch.empty((b,), dtype=I32, device=dev)
+    _launch("probe", "orca_probe", dev, bucket_keys.data_ptr(),
+            bucket_ptr.data_ptr(), keys.data_ptr(), h1.data_ptr(),
+            h2.data_ptr(), found.data_ptr(), ptr.data_ptr(), b, rows, w, kw)
+    return found, ptr
+
+
+def fetch(pool, ptr):
+    """pool: (NP + 1, VW), row NP = the zero sentinel; ptr: (B,) int32 in
+    [0, NP] (misses pre-clamped to NP). Returns (B, VW)."""
+    dev = ptr.device
+    _check("ptr", ptr, 1, dev)
+    _check("pool", pool, 2, dev)
+    b = ptr.shape[0]
+    rows, vw = pool.shape
+    out = torch.empty((b, vw), dtype=I32, device=dev)
+    _launch("fetch", "orca_fetch", dev, pool.data_ptr(), ptr.data_ptr(),
+            out.data_ptr(), b, rows, vw)
+    return out
+
+
+def cache_probe(cache_keys, cache_vals, cache_meta, keys, cset):
+    """cache_keys: (CS + 1, CW, KW); cache_vals: (CS + 1, CW, VW);
+    cache_meta: (CS + 1, CW); keys: (B, KW); cset: (B,) set ids in [0, CS].
+    Returns (hit (B,) bool, way (B,) int32, vals (B, VW)) — the max
+    matching way and its value line, zeros where missed."""
+    dev = keys.device
+    _check("keys", keys, 2, dev)
+    b, kw = keys.shape
+    _check("cache_keys", cache_keys, 3, dev)
+    sets, cw = cache_keys.shape[:2]
+    _same("cache_keys", cache_keys.shape, (sets, cw, kw))
+    _check("cache_vals", cache_vals, 3, dev)
+    vw = cache_vals.shape[2]
+    _same("cache_vals", cache_vals.shape, (sets, cw, vw))
+    _check("cache_meta", cache_meta, 2, dev)
+    _same("cache_meta", cache_meta.shape, (sets, cw))
+    _check("cset", cset, 1, dev)
+    _same("cset", cset.shape, (b,))
+    hit = torch.empty((b,), dtype=torch.bool, device=dev)
+    way = torch.empty((b,), dtype=I32, device=dev)
+    vals = torch.empty((b, vw), dtype=I32, device=dev)
+    _launch("cache_probe", "orca_cache_probe", dev, cache_keys.data_ptr(),
+            cache_vals.data_ptr(), cache_meta.data_ptr(), keys.data_ptr(),
+            cset.data_ptr(), hit.data_ptr(), way.data_ptr(), vals.data_ptr(),
+            b, sets, cw, kw, vw)
+    return hit, way, vals
+
+
+def commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val,
+                   bucket_order=None):
+    """Scatter pass 1, IN PLACE: way ``tw[i]`` of bucket row ``tb[i]`` <-
+    (keys[i], bptr_val[i]); entries with tb == NB (the resident sentinel
+    row) write zeros. Live (tb, tw) must be unique, as the plan makes them.
+    ``bucket_order`` is accepted for parity with the TPU kernel, whose
+    in-order grid needs sorted entries; this kernel does not.
+    Returns (bucket_keys, bucket_ptr), the same tensors."""
+    del bucket_order
+    dev = keys.device
+    _check("keys", keys, 2, dev)
+    b, kw = keys.shape
+    _check("bucket_keys", bucket_keys, 3, dev)
+    rows, w = bucket_keys.shape[:2]
+    _same("bucket_keys", bucket_keys.shape, (rows, w, kw))
+    _check("bucket_ptr", bucket_ptr, 2, dev)
+    _same("bucket_ptr", bucket_ptr.shape, (rows, w))
+    for name, t in (("tb", tb), ("tw", tw), ("bptr_val", bptr_val)):
+        _check(name, t, 1, dev)
+        _same(name, t.shape, (b,))
+    _launch("commit_buckets", "orca_commit_buckets", dev,
+            bucket_keys.data_ptr(), bucket_ptr.data_ptr(), keys.data_ptr(),
+            tb.data_ptr(), tw.data_ptr(), bptr_val.data_ptr(), b, rows - 1,
+            w, kw)
+    return bucket_keys, bucket_ptr
+
+
+def write_rows(pool, vals, wp, row_order=None):
+    """Scatter pass 2, IN PLACE: pool row ``wp[i]`` <- vals[i]; entries with
+    wp == NP (the resident sentinel row) write zeros. Live wp must be
+    unique. ``row_order`` is accepted for parity and not needed.
+    Returns the pool, the same tensor."""
+    del row_order
+    dev = vals.device
+    _check("vals", vals, 2, dev)
+    b, vw = vals.shape
+    _check("pool", pool, 2, dev)
+    _same("pool", pool.shape[1:], (vw,))
+    _check("wp", wp, 1, dev)
+    _same("wp", wp.shape, (b,))
+    _launch("write_rows", "orca_write_rows", dev, pool.data_ptr(),
+            vals.data_ptr(), wp.data_ptr(), b, pool.shape[0] - 1, vw)
+    return pool
+
+
+def get(bucket_keys, bucket_ptr, pool, keys, h1, h2):
+    """Full GET walk: probe, then fetch. Returns (vals (B, VW), found (B,)).
+    Misses fetch the pool's resident zero sentinel row, never a live row."""
+    found, ptr = probe(bucket_keys, bucket_ptr, keys, h1, h2)
+    np_ = pool.shape[0] - 1
+    ptr_safe = torch.where(found, torch.clamp(ptr, 0, np_), np_).to(I32)
+    vals = fetch(pool, ptr_safe)
+    return torch.where(found[:, None], vals, 0), found
+
+
+def insert(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp,
+           bucket_order=None, row_order=None):
+    """Full planned PUT commit (see ``kvstore.plan_put`` for the plan), IN
+    PLACE: both scatter passes. Returns (bucket_keys, bucket_ptr, pool)."""
+    commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val,
+                   bucket_order)
+    write_rows(pool, vals, wp, row_order)
+    return bucket_keys, bucket_ptr, pool

@@ -1,0 +1,71 @@
+"""Dispatch between the CUDA kernels and their plain PyTorch versions.
+
+The knob is the engine's ``kernel_backend``: ``auto`` takes the kernel for
+CUDA tensors and the plain version for CPU tensors (the CPU has no kernel
+to run, and no interpret mode); ``cuda`` takes the kernel and raises on
+CPU tensors; ``ref`` takes the plain version on either device. A CUDA
+tensor under ``auto`` or ``cuda`` always launches the kernel: a build or
+launch failure raises, it never falls back.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import hash_probe as _hp
+from repro_torch.kernels import ref as _ref
+
+
+def resolve_backend(backend, device) -> bool:
+    """Map the ``kernel_backend`` knob and the tensors' device to
+    ``use_ref``: True routes to :mod:`ref`, False to the CUDA kernels."""
+    if backend in (None, "auto"):
+        return device.type != "cuda"
+    if backend == "cuda":
+        if device.type != "cuda":
+            raise ValueError(
+                f"kernel_backend='cuda' needs CUDA tensors, got {device}; "
+                "use 'auto' or 'ref' on the CPU"
+            )
+        return False
+    if backend == "ref":
+        return True
+    raise ValueError(
+        f"unknown kernel_backend {backend!r} (expected auto | cuda | ref)"
+    )
+
+
+def hash_probe(bucket_keys, bucket_ptr, keys, h1, h2, *, backend="auto"):
+    """Two-bucket existence probe. Returns (found (B,), ptr (B,)): the first
+    two memory accesses of both the GET walk and the PUT plan."""
+    if resolve_backend(backend, keys.device):
+        return _ref.hash_probe(bucket_keys, bucket_ptr, keys, h1, h2)
+    return _hp.probe(bucket_keys, bucket_ptr, keys, h1, h2)
+
+
+def cache_probe(cache_keys, cache_vals, cache_meta, keys, cset, *,
+                backend="auto"):
+    """Hot-set cache lookup. Returns (hit (B,), way (B,), vals (B, VW))."""
+    if resolve_backend(backend, keys.device):
+        return _ref.cache_probe(cache_keys, cache_vals, cache_meta, keys, cset)
+    return _hp.cache_probe(cache_keys, cache_vals, cache_meta, keys, cset)
+
+
+def hash_get(bucket_keys, bucket_ptr, pool, keys, h1, h2, *, backend="auto"):
+    """GET walk: probe + fetch. Returns (vals (B, VW), found (B,))."""
+    if resolve_backend(backend, keys.device):
+        return _ref.hash_get(bucket_keys, bucket_ptr, pool, keys, h1, h2)
+    return _hp.get(bucket_keys, bucket_ptr, pool, keys, h1, h2)
+
+
+def hash_put(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp,
+             bucket_order=None, row_order=None, *, backend="auto"):
+    """Commit phase of a planned batched PUT (``kvstore.plan_put`` output),
+    IN PLACE on both backends. ``bucket_order``/``row_order`` are the
+    plan's target sort orders, which neither backend needs. Returns the
+    updated (bucket_keys, bucket_ptr, pool): the same tensors."""
+    if resolve_backend(backend, keys.device):
+        return _ref.hash_put(
+            bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp
+        )
+    return _hp.insert(
+        bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp,
+        bucket_order, row_order,
+    )

@@ -1,0 +1,103 @@
+"""Plain PyTorch versions of the hash-table kernels: what the CPU runs, and
+what ``chip_smoke.py`` holds each CUDA kernel against on the card.
+
+Each has the signature and the sentinel semantics of its counterpart in
+the JAX package's ``kernels/ref.py``. The state arrays use the
+sentinel-resident ``KVState`` layout: the last row of ``bucket_keys``,
+``bucket_ptr``, ``pool`` and the cache arrays is an all-zero pad row that
+absorbs dropped writes.
+"""
+from __future__ import annotations
+
+import torch
+
+I32 = torch.int32
+
+
+def hash_probe(bucket_keys, bucket_ptr, keys, h1, h2):
+    """Two-bucket existence probe (the first two of a GET/PUT's memory
+    accesses). A way matches where its key words equal the query and its
+    pointer is >= 0. Returns (found (B,) bool, ptr (B,) int32): the max
+    matching pointer of the primary bucket if it matched, else of the
+    overflow bucket; 0 where missed."""
+    def one(bids):
+        bk = bucket_keys[bids]
+        bp = bucket_ptr[bids]
+        eq = torch.all(bk == keys[:, None, :], dim=-1) & (bp >= 0)
+        hit = torch.any(eq, dim=-1)
+        ptr = torch.max(torch.where(eq, bp, -1), dim=-1).values
+        return hit, ptr
+
+    hit1, p1 = one(h1)
+    hit2, p2 = one(h2)
+    found = hit1 | hit2
+    ptr = torch.where(hit1, p1, p2)
+    return found, torch.where(found, ptr, 0).to(I32)
+
+
+def fetch(pool, ptr):
+    """Gather pool rows at pre-clamped pointers (misses point at the
+    resident zero sentinel row NP). pool: (NP + 1, VW); ptr: (B,)."""
+    return pool[ptr]
+
+
+def cache_probe(cache_keys, cache_vals, cache_meta, keys, cset):
+    """Hot-set cache lookup. cache_keys: (CS + 1, CW, KW); cache_vals:
+    (CS + 1, CW, VW); cache_meta: (CS + 1, CW) (meta == 0 marks an empty
+    way, so the zero sentinel row can never hit); keys: (B, KW); cset: (B,).
+
+    Returns (hit (B,) bool, way (B,) int32, vals (B, VW)): the max matching
+    way and that way's value line, both 0 where missed."""
+    ck = cache_keys[cset]  # (B, CW, KW)
+    cm = cache_meta[cset]  # (B, CW)
+    eq = torch.all(ck == keys[:, None, :], dim=-1) & (cm > 0)
+    hit = torch.any(eq, dim=-1)
+    cw = cm.shape[1]
+    iota = torch.arange(cw, dtype=I32, device=keys.device)[None, :]
+    way = torch.max(torch.where(eq, iota, -1), dim=-1).values
+    way = torch.where(hit, way, 0).to(I32)
+    vals = torch.where(hit[:, None], cache_vals[cset, way], 0)
+    return hit, way, vals
+
+
+def hash_get(bucket_keys, bucket_ptr, pool, keys, h1, h2):
+    """Two-bucket probe + value fetch. Returns (vals, found). Misses read
+    the pool's resident zero sentinel row (last row) — never a live row."""
+    found, ptr = hash_probe(bucket_keys, bucket_ptr, keys, h1, h2)
+    np_ = pool.shape[0] - 1
+    vals = fetch(pool, torch.where(found, torch.clamp(ptr, 0, np_), np_))
+    return torch.where(found[:, None], vals, 0), found
+
+
+def commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val):
+    """PUT scatter pass 1, IN PLACE: way ``tw[i]`` of bucket ``tb[i]`` <-
+    (keys[i], bptr_val[i]). Entries aimed at the sentinel row (tb == NB)
+    write zeros, so the sentinel stays zero. Returns the two arrays."""
+    nb = bucket_keys.shape[0] - 1
+    drop = tb >= nb
+    bucket_keys[tb, tw] = torch.where(drop[:, None], 0, keys)
+    bucket_ptr[tb, tw] = torch.where(drop, 0, bptr_val)
+    return bucket_keys, bucket_ptr
+
+
+def write_rows(pool, vals, wp):
+    """PUT scatter pass 2, IN PLACE: pool row ``wp[i]`` <- vals[i]. Entries
+    aimed at the sentinel row (wp == NP) write zeros. Returns the pool."""
+    np_ = pool.shape[0] - 1
+    pool[wp] = torch.where((wp >= np_)[:, None], 0, vals)
+    return pool
+
+
+def hash_put(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp):
+    """Commit phase of a planned batched PUT (see ``kvstore.plan_put``),
+    IN PLACE, as the CUDA commit kernels are: ``bucket_keys``,
+    ``bucket_ptr`` and ``pool`` are written and returned. tb/tw: (B,)
+    target bucket/way (tb == NB = the sentinel); bptr_val: (B,) pool
+    pointer to store; wp: (B,) pool row for the value (wp == NP = the
+    sentinel). Sentinel-targeted payloads are zeroed, so dropped duplicates
+    all write the same zeros and the sentinel rows stay zero. Live targets
+    are unique by the plan's construction, so the result does not depend
+    on write order."""
+    commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val)
+    write_rows(pool, vals, wp)
+    return bucket_keys, bucket_ptr, pool
