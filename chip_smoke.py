@@ -1,25 +1,45 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the ORCA request engine serving the KVS app
-— through the hand-written CUDA kernels, at the size of the paper's KVS
-working set, and holds every kernel against its plain PyTorch version.
+Drives the port's three request apps — the KVS, chain-replicated
+transactions (TX) and DLRM inference — through the ORCA request engine and
+the hand-written CUDA kernels, at deployment sizes, and holds every kernel
+against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
 Phases, each printing one JSON line:
 
-1. device  — the card's name and power limit (nvidia-smi), the kernel build;
-2. load    — 2^26 distinct keys PUT into a store of 2^24 buckets x 8 ways
-             and 2^27 64-B values behind a 65,536 x 4 hot-set cache;
-3. kernels — each kernel against its plain version at the engine's batch
-             (256 requests on the loaded store), bit for bit, and timed;
-4. serve   — 200 engine steps at budget 256 (95% GET / 5% PUT, zipf 0.99
-             keys, 1% absent) through two engines, ``auto`` (the kernels)
-             and ``ref`` (the plain versions on the card): responses and
-             final states must be equal, every GET of a loaded key no PUT
-             touched must return its loaded value, and every kernel must
-             have launched.
+1. device       — the card's name and power limit (nvidia-smi), the build;
+2. load         — 2^26 distinct keys PUT into a store of 2^24 buckets x 8
+                  ways and 2^27 64-B values behind a 65,536 x 4 cache;
+3. kernels      — each KVS kernel against its plain version at the
+                  engine's batch (256 requests on the loaded store);
+4. serve        — 200 KVS engine steps at budget 256 (95% GET / 5% PUT,
+                  zipf 0.99 keys, 1% absent) through two engines, ``auto``
+                  (the kernels) and ``ref`` (the plain versions on the
+                  card): equal responses and final states, GETs of loaded
+                  keys return their values, every kernel launched;
+5. tx_kernels   — commit and commit_chain against their plain versions on
+                  a chain of 3 replicas of 2^24 64-B rows and a 2^18-record
+                  log, 256 planned transactions with conflicts, duplicates,
+                  skewed tails and a dead replica;
+6. tx_serve     — 200 TX engine steps at budget 256 (1-8 write ops, zipf
+                  0.99 offsets, 0.5% MALFORMED, clients retry DEFERRED)
+                  through an ``auto`` and a ``ref`` engine: equal responses
+                  and states, replicas identical, the log holds exactly the
+                  committed transactions in commit order and replays to the
+                  store;
+7. tx_resync    — the log records committed after step 180 replayed into a
+                  replica cloned at step 180 (``replay_records``, one
+                  ``commit`` launch per record) rebuild the final replica;
+8. dlrm_kernels — embedding_reduce against its plain version on 8 tables of
+                  2^20 x 64 rows (f32, and a bf16 copy), 256 queries;
+9. dlrm_serve   — 200 DLRM engine steps at budget 256 through an ``auto``
+                  and a ``ref`` engine: equal responses, logits equal a
+                  direct ``forward``, malformed requests NACKed;
+10. merci       — MERCI-rewritten queries at the JAX bench's table size:
+                  kernel path equals the plain path, and the raw logits.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch raises and exits non-zero before the last line. Without a
@@ -52,13 +72,42 @@ CAPACITY = 64
 ZIPF = 0.99
 KEY_MULT = 0x9E3779B1 % N_KEYS | 1  # odd: rank -> key index is a bijection
 
-# the TPU kernel each CUDA kernel replaces: its def line in the JAX package
+# each CUDA kernel: its source, and the TPU kernel it replaces (its def
+# line in the JAX package)
+_CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
-    "probe": 67, "fetch": 170, "cache_probe": 122, "commit_buckets": 226,
-    "write_rows": 277,
+    "probe": ("hash_probe.cu", "src/repro/kernels/hash_probe.py", 67),
+    "fetch": ("hash_probe.cu", "src/repro/kernels/hash_probe.py", 170),
+    "cache_probe": ("hash_probe.cu", "src/repro/kernels/hash_probe.py", 122),
+    "commit_buckets": ("hash_probe.cu", "src/repro/kernels/hash_probe.py",
+                       226),
+    "write_rows": ("hash_probe.cu", "src/repro/kernels/hash_probe.py", 277),
+    "commit": ("tx_commit.cu", "src/repro/kernels/tx_commit.py", 54),
+    "commit_chain": ("tx_commit.cu", "src/repro/kernels/tx_commit.py", 118),
+    "embedding_reduce": ("embedding_reduce.cu",
+                         "src/repro/kernels/embedding_reduce.py", 37),
 }
-JAX_FILE = "src/repro/kernels/hash_probe.py"
-SOURCE = "src/repro_torch/kernels/csrc/hash_probe.cu"
+
+# ORCA-TX: 64-B values (benchmarks/bench_tx.py), the usual chain
+# replication factor of 3, a 2^18-record redo log per replica
+TX_SHAPE = dict(num_keys=2**24, val_words=16, max_ops=8, chain_len=3,
+                log_capacity=2**18)
+TX_MALFORMED = 0.005
+TX_KEY_MULT = 0x9E3779B1 % 2**24 | 1  # odd: rank -> offset is a bijection
+TX_RESYNC_AT = 180
+# ORCA-DLRM: the repo's widths (dim 64, the paper default); rows scaled up
+# from 4,096 so the 2.1 GB of tables lies far outside the 50 MB L2
+DLRM_SHAPE = dict(num_tables=8, rows=2**20, dim=64, lookups=32,
+                  dense_features=13, bottom=(128, 64), top=(128, 64, 1))
+DLRM_NOP, DLRM_BAD_INDEX = 0.01, 0.005
+# MERCI at the JAX bench's size (benchmarks/bench_dlrm.py), where the
+# host's pair-by-pair rewrite is affordable
+MERCI_SHAPE = dict(num_tables=8, rows=16384, dim=64, lookups=32, cluster=4,
+                   memo_ratio=0.25)
+MERCI_BATCHES, MERCI_QUERIES, MERCI_HIT_RATE = 3, 64, 0.6
+MALFORMED = -1  # the NACK status word (repro_torch/core/status.py)
+LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6  # tests/test_kernel_dispatch.py
+MERCI_RTOL, MERCI_ATOL = 1e-3, 1e-4  # tests/test_dlrm.py
 
 
 def emit(obj) -> None:
@@ -108,6 +157,23 @@ def time_us(torch, fn, reps=50, warmup=5):
     return statistics.median(s.elapsed_time(e) for s, e in pairs) * 1000.0
 
 
+def loop_us(torch, fn, reps=50, warmup=5):
+    """µs per call over ``reps`` back-to-back calls between one pair of
+    CUDA events: the device time per call wherever the card, not the
+    host's launches, is the slower side."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1000.0 / reps
+
+
 def device_us(torch, fn, reps=20):
     """Run ``fn`` ``reps`` times under torch.profiler. Returns (device µs per
     call over every kernel and copy it ran on the card, {kernel name:
@@ -129,21 +195,94 @@ def device_us(torch, fn, reps=20):
     return sum(us for us, _ in per.values()), per
 
 
-def max_abs_err(torch, got, want) -> int:
-    """Largest |got - want| (0 when equal), over the differing elements
+def _bits(torch, t):
+    """Integer view of a tensor, so equality is bit equality (floats too)."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def cold_device_us(torch, fn, reps=20):
+    """Device µs per call with the 50 MB L2 flushed before each call, as a
+    caller that touched other memory in between finds it: the profiled
+    time of (flush, call) less that of the flush alone."""
+    flush = torch.empty((64 << 20,), dtype=torch.uint8, device="cuda")
+
+    def both():
+        flush.zero_()
+        fn()
+
+    total, _ = device_us(torch, both, reps)
+    alone, _ = device_us(torch, flush.zero_, reps)
+    return total - alone
+
+
+def max_abs_err(torch, got, want):
+    """Largest |got - want| (0 when bit-equal), over the differing elements
     only: the commit outputs are whole multi-GB state arrays."""
-    diff = got != want
+    diff = _bits(torch, got) != _bits(torch, want)
     if not bool(diff.any()):
         return 0
+    if got.dtype.is_floating_point:
+        return float((got[diff].double() - want[diff].double()).abs().max())
     return int((got[diff].to(torch.int64) - want[diff].to(torch.int64))
                .abs().max())
 
 
 def mismatches(torch, got, want) -> int:
+    """Elements that differ in their bits."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"shape/dtype {got.shape} {got.dtype} vs "
                              f"{want.shape} {want.dtype}")
-    return int((got != want).sum())
+    return int((_bits(torch, got) != _bits(torch, want)).sum())
+
+
+def kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn, nbytes, batch,
+                 lib_fn=None):
+    """One kernel against its plain version on the same inputs: the
+    mismatching elements of its outputs, then its time (CUDA events,
+    median of 50 calls, and device time from the profiler), the plain
+    version's, the library call's if there is one, and its bound: the
+    bytes it must move over the card's memory rate."""
+    miss = sum(mismatches(torch, a, b) for a, b in zip(outs_k, outs_p))
+    err = max(max_abs_err(torch, a, b) for a, b in zip(outs_k, outs_p))
+    us = time_us(torch, k_fn)
+    plain_us = time_us(torch, p_fn)
+    lib_us = time_us(torch, lib_fn) if lib_fn is not None else None
+    k_dev, _ = device_us(torch, k_fn)
+    p_dev, p_kernels = device_us(torch, p_fn)
+    k_loop = loop_us(torch, k_fn)
+    k_cold = cold_device_us(torch, k_fn)
+    bound_us = nbytes / HBM_BYTES_PER_S * 1e6
+    src, jax_file, line = KERNELS[name]
+    return {
+        "name": name, "route": "cuda", "source": _CSRC + src,
+        "replaces": f"{jax_file}:{line}",
+        "jax_function": f"{jax_file}::{name}", "mismatches": miss,
+        "max_abs_err": err, "ms": us / 1e3, "plain_ms": plain_us / 1e3,
+        "bound_ms": bound_us / 1e3, "bound_by": "bytes",
+        "library_ms": None if lib_us is None else lib_us / 1e3,
+        "us": us, "plain_us": plain_us, "library_us": lib_us,
+        "bound_us": bound_us, "bytes": nbytes, "batch": batch,
+        "device_us": k_dev, "device_cold_us": k_cold, "loop_us": k_loop,
+        "plain_device_us": p_dev,
+        "plain_device_launches": sum(n for _, n in p_kernels.values()),
+    }
+
+
+def check_entries(entries, phase):
+    bad = {k: v["mismatches"] for k, v in entries.items() if v["mismatches"]}
+    if bad:
+        raise AssertionError(f"{phase}: kernels disagree with their plain "
+                             f"versions: {bad}")
+
+
+def entry_summary(entries):
+    return {k: {f: v[f] for f in ("mismatches", "max_abs_err", "us",
+                                  "plain_us", "library_us", "bound_us",
+                                  "device_us", "device_cold_us", "loop_us",
+                                  "plain_device_us")}
+            for k, v in entries.items()}
 
 
 def clone_state(st):
@@ -222,26 +361,8 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
     entries = {}
 
     def record(name, outs_k, outs_p, k_fn, p_fn, nbytes, lib_fn=None):
-        miss = sum(mismatches(torch, a, b) for a, b in zip(outs_k, outs_p))
-        err = max(max_abs_err(torch, a, b) for a, b in zip(outs_k, outs_p))
-        us = time_us(torch, k_fn)
-        plain_us = time_us(torch, p_fn)
-        lib_us = time_us(torch, lib_fn) if lib_fn is not None else None
-        k_dev, k_kernels = device_us(torch, k_fn)
-        p_dev, p_kernels = device_us(torch, p_fn)
-        bound_us = nbytes / HBM_BYTES_PER_S * 1e6
-        entries[name] = {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": f"{JAX_FILE}:{KERNELS[name]}",
-            "jax_function": f"{JAX_FILE}::{name}", "mismatches": miss,
-            "max_abs_err": err, "ms": us / 1e3, "plain_ms": plain_us / 1e3,
-            "bound_ms": bound_us / 1e3, "bound_by": "bytes",
-            "library_ms": None if lib_us is None else lib_us / 1e3,
-            "us": us, "plain_us": plain_us, "library_us": lib_us,
-            "bound_us": bound_us, "bytes": nbytes, "batch": BATCH,
-            "device_us": k_dev, "plain_device_us": p_dev,
-            "plain_device_launches": sum(n for _, n in p_kernels.values()),
-        }
+        entries[name] = kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn,
+                                     nbytes, BATCH, lib_fn)
 
     kw, vw, w = cfg.key_words, cfg.val_words, cfg.ways
     cw = cfg.cache_ways
@@ -297,15 +418,19 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
     del pool_k, pool_p
     torch.cuda.empty_cache()
 
-    emit({"phase": "kernels_vs_plain",
-          "results": {k: {f: v[f] for f in ("mismatches", "us", "plain_us",
-                                            "library_us", "bound_us",
-                                            "device_us", "plain_device_us")}
-                      for k, v in entries.items()}})
-    bad = {k: v["mismatches"] for k, v in entries.items() if v["mismatches"]}
-    if bad:
-        raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    emit({"phase": "kernels_vs_plain", "results": entry_summary(entries)})
+    check_entries(entries, "kernels_vs_plain")
     return entries
+
+
+def zipf_ranks(torch, g, n_items, n):
+    """``n`` ranks in [0, n_items) drawn zipf(ZIPF) on the card: rank 0 is
+    the hottest item."""
+    ranks = torch.arange(1, n_items + 1, dtype=torch.float64, device="cuda")
+    cdf = torch.cumsum(ranks.pow(-ZIPF), 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand((n,), generator=g, device="cuda", dtype=torch.float64)
+    return torch.clamp(torch.searchsorted(cdf, u), max=n_items - 1)
 
 
 def make_stream(torch, cfg, kv):
@@ -313,12 +438,7 @@ def make_stream(torch, cfg, kv):
     ops and absent flags (on the host)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     n = STEPS * BATCH
-    ranks = torch.arange(1, N_KEYS + 1, dtype=torch.float64, device="cuda")
-    cdf = torch.cumsum(ranks.pow(-ZIPF), 0)
-    cdf /= cdf[-1].clone()
-    u = torch.rand((n,), generator=g, device="cuda", dtype=torch.float64)
-    rank = torch.clamp(torch.searchsorted(cdf, u), max=N_KEYS - 1)
-    del ranks, cdf
+    rank = zipf_ranks(torch, g, N_KEYS, n)
     idx = (rank * KEY_MULT) % N_KEYS
     absent = torch.rand((n,), generator=g, device="cuda") < 0.01
     idx = torch.where(
@@ -333,55 +453,64 @@ def make_stream(torch, cfg, kv):
     return payloads, idx.cpu().numpy(), op.cpu().numpy(), absent.cpu().numpy()
 
 
-def serve(torch, eng, kv, cfg, state, payloads, backend):
-    """STEPS steps of inject / run_steps / drain. Returns the final state,
-    the drained responses, per-step times and the cache counter deltas."""
-    w = kv.request_words(cfg)
+def serve(torch, eng, app, app_cfg, state, backend, payloads_for,
+          on_step=None):
+    """STEPS steps of inject / run_steps / drain through an engine serving
+    ``app`` (an app module: ``request_words``, ``app_step``) on ``state``.
+    Step s injects ``payloads_for(s)`` (BATCH requests, wave v giving one
+    to each queue, so request v*Q + q is queue q's v-th), runs one step,
+    drains, and hands ``on_step(s, es, stats, pay)`` its results. Every
+    request must be accepted and answered in its step. Returns the final
+    state, the drained responses, the step times, the loop time, and the
+    engine's app_fn and config."""
+    w = app.request_words(app_cfg)
     ecfg = eng.EngineConfig(num_queues=QUEUES, capacity=CAPACITY,
                             req_words=w, resp_words=w, budget=BATCH,
                             kernel_backend=backend)
     es = eng.make(ecfg, state)
-    app_fn = eng.bind_app(kv.app_step, cfg, ecfg)
+    app_fn = eng.bind_app(app.app_step, app_cfg, ecfg)
     qids = torch.arange(QUEUES, dtype=torch.int32, device="cuda")
     waves = BATCH // QUEUES
-    drained, step_s = [], []
-    totals = {k: 0 for k in ("served", "cache_hits", "cache_misses",
-                             "cache_evictions")}
-    stats_dev = []
+    drained, step_s, accepted = [], [], []
     torch.cuda.synchronize()
     t_loop = time.perf_counter()
     for s in range(STEPS):
+        batch = payloads_for(s)
         for v in range(waves):
-            lo = (s * waves + v) * QUEUES
-            es, accepted = eng.inject(es, qids, payloads[lo: lo + QUEUES],
-                                      with_accepted=True)
-            if not bool(accepted.all()):
-                raise AssertionError(f"step {s}: ring rejected a request")
+            es, ok = eng.inject(es, qids, batch[v * QUEUES: (v + 1) * QUEUES],
+                                with_accepted=True)
+            accepted.append(ok)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         es, stats = eng.run_steps(es, app_fn, ecfg, 1)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        stats_dev.append(stats)
         pay, counts, es = eng.drain_responses(es, CAPACITY)
         drained.append((pay, counts))
+        if on_step is not None:
+            on_step(s, es, stats, pay)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t_loop
-    for st in stats_dev:
-        for k in totals:
-            totals[k] += int(st[k].sum())
-    return es, drained, step_s, loop_s, totals
+    if not bool(torch.stack(accepted).all()):
+        raise AssertionError(f"{backend}: a ring rejected a request")
+    if not all(bool((c == waves).all()) for _, c in drained):
+        raise AssertionError(f"{backend}: a step left requests unanswered")
+    return es, drained, step_s, loop_s, app_fn, ecfg
 
 
-def profile_steps(torch, eng, kv, cfg, es, payloads, steps=7):
-    """Device time of ``steps`` more kernel-engine steps (rings filled first,
-    so only the steps are profiled): µs per step summed over every kernel
-    and copy, device launches per step, and the costliest kernels."""
+def same_responses(torch, dr_k, dr_p, what):
+    for i, ((pk, ck), (pp, cp)) in enumerate(zip(dr_k, dr_p, strict=True)):
+        if not (torch.equal(ck, cp) and torch.equal(pk, pp)):
+            raise AssertionError(f"{what} step {i}: responses differ auto "
+                                 "vs ref")
+
+
+def profile_steps(torch, eng, es, app_fn, ecfg, payloads, steps=7):
+    """Device time of ``steps`` more engine steps on ``payloads`` (rings
+    filled first, so only the steps are profiled): µs per step summed over
+    every kernel and copy, device launches per step, and the costliest
+    kernels. The app state is updated by these steps."""
     steps = min(steps, STEPS)
-    w = kv.request_words(cfg)
-    ecfg = eng.EngineConfig(num_queues=QUEUES, capacity=CAPACITY,
-                            req_words=w, resp_words=w, budget=BATCH)
-    app_fn = eng.bind_app(kv.app_step, cfg, ecfg)
     _, es = eng.drain_responses(es, CAPACITY)[1:]
     qids = torch.arange(QUEUES, dtype=torch.int32, device="cuda")
     for v in range(steps * BATCH // QUEUES):
@@ -398,6 +527,35 @@ def profile_steps(torch, eng, kv, cfg, es, payloads, steps=7):
             / steps,
             "top_kernels_us_per_step": {k[:90]: us / steps
                                         for k, (us, _) in top}}
+
+
+def step_summary(step_s, loop_s, served):
+    return {
+        "step_us_median": statistics.median(step_s) * 1e6,
+        "step_us_p90": sorted(step_s)[int(0.9 * len(step_s))] * 1e6,
+        "requests_per_s_steps": served / sum(step_s),
+        "requests_per_s_loop": served / loop_s,
+    }
+
+
+def same_state(torch, a, b, what):
+    """Two states (NamedTuples, dicts, lists of tensors) equal leaf for leaf
+    in dtype and bits."""
+    def flat(x, path=""):
+        if isinstance(x, torch.Tensor):
+            return [(path, x)]
+        if isinstance(x, dict):
+            return [p for k, v in x.items() for p in flat(v, f"{path}.{k}")]
+        if hasattr(x, "_asdict"):
+            return flat(x._asdict(), path)
+        return [p for i, v in enumerate(x) for p in flat(v, f"{path}[{i}]")]
+
+    fa, fb = flat(a), flat(b)
+    if [p for p, _ in fa] != [p for p, _ in fb]:
+        raise AssertionError(f"{what}: the states have other fields")
+    for (name, x), (_, y) in zip(fa, fb):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: {name} differs")
 
 
 def check_responses(np, drained, idx, op, absent, stored, val_words,
@@ -444,29 +602,20 @@ def phase_serve(torch, np, eng, kv, hp, cfg, state, stored, smi):
     payloads, idx, op, absent = make_stream(torch, cfg, kv)
     runs = {}
     for backend in ("auto", "ref"):
-        st = clone_state(state)
+        stats = []
         torch.cuda.synchronize()
         hp.reset_launches()
-        es, drained, step_s, loop_s, totals = serve(
-            torch, eng, kv, cfg, st, payloads, backend)
-        runs[backend] = (es, drained, step_s, loop_s, totals,
-                         dict(hp.launches))
-        del st
-    es_k, dr_k, step_k, loop_k, tot_k, launches = runs["auto"]
-    es_p, dr_p, step_p, loop_p, tot_p, launches_p = runs["ref"]
-
-    for i, ((pk, ck), (pp, cp)) in enumerate(zip(dr_k, dr_p)):
-        if not (torch.equal(ck, cp) and torch.equal(pk, pp)):
-            raise AssertionError(f"step {i}: responses differ auto vs ref")
-
-    def flat(x, path=""):
-        if isinstance(x, torch.Tensor):
-            return [(path, x)]
-        return [p for f, v in x._asdict().items() for p in flat(v, f"{path}.{f}")]
-
-    for (name, a), (_, b) in zip(flat(es_k), flat(es_p)):
-        if a.dtype != b.dtype or not torch.equal(a, b):
-            raise AssertionError(f"final state {name} differs auto vs ref")
+        out = serve(torch, eng, kv, cfg, clone_state(state), backend,
+                    lambda s: payloads[s * BATCH: (s + 1) * BATCH],
+                    lambda s, es, st, pay: stats.append(st))
+        totals = {k: sum(int(st[k].sum()) for st in stats)
+                  for k in ("served", "cache_hits", "cache_misses",
+                            "cache_evictions")}
+        runs[backend] = (*out, totals, dict(hp.launches))
+    es_k, dr_k, step_k, loop_k, app_fn, ecfg, tot_k, launches = runs["auto"]
+    es_p, dr_p, step_p, loop_p, _, _, tot_p, launches_p = runs["ref"]
+    same_responses(torch, dr_k, dr_p, "serve")
+    same_state(torch, es_k, es_p, "serve: final state auto vs ref")
     dead = [k for k, v in launches.items() if v == 0]
     if dead:
         raise AssertionError(f"kernels never launched on the main path: {dead}")
@@ -479,7 +628,7 @@ def phase_serve(torch, np, eng, kv, hp, cfg, state, stored, smi):
 
     checked = check_responses(np, dr_k, idx, op, absent, stored,
                               cfg.val_words, loaded_fn)
-    profile = profile_steps(torch, eng, kv, cfg, es_k, payloads)
+    profile = profile_steps(torch, eng, es_k, app_fn, ecfg, payloads)
     profile["idle_share"] = 1 - profile["device_us_per_step"] / (
         statistics.median(step_k) * 1e6)
     out = {"phase": "serve", "nvidia_smi": smi, "steps": STEPS,
@@ -492,14 +641,437 @@ def phase_serve(torch, np, eng, kv, hp, cfg, state, stored, smi):
            "profile": profile}
     for label, step_s, loop_s, tot in (("kernels", step_k, loop_k, tot_k),
                                       ("plain", step_p, loop_p, tot_p)):
-        out[label] = {
-            "step_us_median": statistics.median(step_s) * 1e6,
-            "step_us_p90": sorted(step_s)[int(0.9 * len(step_s))] * 1e6,
-            "requests_per_s_steps": tot["served"] / sum(step_s),
-            "requests_per_s_loop": tot["served"] / loop_s,
-        }
+        out[label] = step_summary(step_s, loop_s, tot["served"])
     emit(out)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# ORCA-TX
+# ---------------------------------------------------------------------------
+
+def tx_stream(torch, cfg, n, g, malformed=TX_MALFORMED):
+    """``n`` transaction records (n, TW) on the card: 1..M write ops at
+    zipf offsets (hot offsets conflict across transactions and repeat
+    within one), random values, and a ``malformed`` share whose op count
+    overflows or whose first offset lies past the store. Returns the
+    records and the malformed mask."""
+    m, vw, nk = cfg.max_ops, cfg.val_words, cfg.num_keys
+    dev = "cuda"
+    n_ops = torch.randint(1, m + 1, (n,), generator=g, device=dev)
+    off = (zipf_ranks(torch, g, nk, n * m).reshape(n, m) * TX_KEY_MULT) % nk
+    vals = torch.randint(-2**31, 2**31 - 1, (n, m, vw), generator=g,
+                         device=dev, dtype=torch.int32)
+    live = torch.arange(m, device=dev)[None, :] < n_ops[:, None]
+    off = torch.where(live, off, 0)
+    vals = torch.where(live[..., None], vals, 0)
+    bad = torch.rand((n,), generator=g, device=dev) < malformed
+    overflow = torch.rand((n,), generator=g, device=dev) < 0.5
+    n_ops = torch.where(bad & overflow, m + 1, n_ops)
+    off[:, 0] = torch.where(bad & ~overflow, nk, off[:, 0])
+    ops = torch.cat([off[..., None].to(torch.int32), vals], dim=2)
+    records = torch.cat([n_ops[:, None], ops.reshape(n, -1)], dim=1)
+    return records.to(torch.int32).contiguous(), bad
+
+
+def phase_tx_kernels(torch, tx, tc, ref, cfg):
+    """commit_chain and commit against their plain versions on the engine's
+    shapes: 256 planned transactions on a chain with random contents,
+    skewed log tails (slots wrap the ring) and a dead replica."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    chain = tx.make_chain(cfg, device="cuda")
+    chain.store.random_(-2**30, 2**30, generator=g)
+    chain.log.random_(-2**30, 2**30, generator=g)
+    chain.store[:, -1] = 0
+    chain.log[:, -1] = 0
+    lc = cfg.log_capacity
+    tails = torch.tensor([lc - 40, 7, lc - 90], dtype=torch.int32,
+                         device="cuda")
+    chain = chain._replace(
+        log_tail=tails, committed=tails.clone(),
+        live=torch.tensor([True, False, True], device="cuda"))
+    batch, _ = tx_stream(torch, cfg, BATCH, g, malformed=0.0)
+    mask = torch.rand((BATCH,), generator=g, device="cuda") > 0.05
+    plan = tx.plan_commit(batch, cfg, mask)
+    slot, rows = tx.commit_targets(chain, plan)
+    # the O(num_keys) part of every TX step: first-claimant concurrency
+    # control fills and scatters an owner table of NK + 1 entries
+    n_ops, offs, _ = tx.parse_tx(batch, cfg)
+
+    def cc():
+        return tx.concurrency_control(n_ops, offs, cfg, mask)
+
+    cc_dev, cc_kernels = device_us(torch, cc)
+    concurrency = {"us": time_us(torch, cc), "loop_us": loop_us(torch, cc),
+                   "device_us": cc_dev,
+                   "device_us_by_kernel": {k[:90]: v[0] for k, v in
+                                           cc_kernels.items()}}
+    args = (plan.batch, plan.values, slot, rows)
+    entries = {}
+
+    log_k, store_k = chain.log.clone(), chain.store.clone()
+    log_p, store_p = chain.log.clone(), chain.store.clone()
+    tc.commit_chain(log_k, store_k, *args)
+    ref.tx_commit_chain(log_p, store_p, *args)
+    tw, vw, m = batch.shape[1], cfg.val_words, cfg.max_ops
+    live_slots = int((slot < lc).sum())
+    live_rows = int((rows < cfg.num_keys).sum())
+    # each input read once, each live row written once (sentinel writes
+    # rewrite zeros that are already there)
+    payload = BATCH * tw * 4 + BATCH * m * vw * 4
+    nbytes = (payload + slot.numel() * 4 + rows.numel() * 4
+              + live_slots * tw * 4 + live_rows * vw * 4)
+    entries["commit_chain"] = kernel_entry(
+        torch, "commit_chain", (log_k, store_k), (log_p, store_p),
+        lambda: tc.commit_chain(log_k, store_k, *args),
+        lambda: ref.tx_commit_chain(log_p, store_p, *args), nbytes, BATCH)
+    dead_kept = (torch.equal(store_k[1], chain.store[1])
+                 and torch.equal(log_k[1], chain.log[1]))
+    del log_k, store_k, log_p, store_p
+
+    one = (plan.batch, plan.values, slot[0].contiguous(), rows[0].contiguous())
+    log_k, store_k = chain.log[0].clone(), chain.store[0].clone()
+    log_p, store_p = chain.log[0].clone(), chain.store[0].clone()
+    tc.commit(log_k, store_k, *one)
+    ref.tx_commit(log_p, store_p, *one)
+    live_slots0 = int((slot[0] < lc).sum())
+    live_rows0 = int((rows[0] < cfg.num_keys).sum())
+    nbytes = (payload + BATCH * 4 + BATCH * m * 4 + live_slots0 * tw * 4
+              + live_rows0 * vw * 4)
+    entries["commit"] = kernel_entry(
+        torch, "commit", (log_k, store_k), (log_p, store_p),
+        lambda: tc.commit(log_k, store_k, *one),
+        lambda: ref.tx_commit(log_p, store_p, *one), nbytes, BATCH)
+    del log_k, store_k, log_p, store_p, chain
+    torch.cuda.empty_cache()
+    emit({"phase": "tx_kernels", "results": entry_summary(entries),
+          "proceeding": int(plan.proceed.sum()), "deferred_or_masked":
+          int((~plan.proceed).sum()), "live_log_slots": live_slots,
+          "live_store_rows": live_rows, "dead_replica_untouched": dead_kept,
+          "chain_gb": cfg.chain_len * ((cfg.num_keys + 1) * vw
+                                       + (lc + 1) * tw) * 4 / 1e9,
+          "concurrency_control": concurrency})
+    check_entries(entries, "tx_kernels")
+    if not dead_kept:
+        raise AssertionError("tx_kernels: the dead replica was written")
+    return entries
+
+
+def tx_serve(torch, eng, tx, tx_app, cfg, stream, backend):
+    """STEPS engine steps of 256 transactions each on a fresh chain: the
+    clients' DEFERRED transactions first (retried), then new ones from
+    ``stream``. Returns what :func:`serve` does, then per step the ids
+    sent and their statuses (both in the engine's batch order), and
+    replica 0 as it was before step TX_RESYNC_AT."""
+    waves = BATCH // QUEUES
+    box = {"retry": torch.zeros((0,), dtype=torch.int64, device="cuda"),
+           "fresh": 0, "ids": None}
+    sent, statuses, snap = [], [], []
+
+    def payloads_for(s):
+        n_new = BATCH - box["retry"].shape[0]
+        fresh = box["fresh"]
+        box["ids"] = torch.cat([box["retry"], torch.arange(
+            fresh, fresh + n_new, device="cuda")])
+        box["fresh"] = fresh + n_new
+        return stream[box["ids"]]
+
+    def on_step(s, es, stats, pay):
+        # request v*Q + q went to queue q at position v; the engine's batch
+        # is queue-major (gather_batch), so batch row q*waves + v holds it
+        # and commits in that order
+        ids = box["ids"].reshape(waves, QUEUES).t().reshape(-1)
+        status = pay[:, :waves, 0].reshape(-1)
+        box["retry"] = ids[status == tx_app.RESP_DEFERRED]
+        sent.append(ids)
+        statuses.append(status)
+        if s == TX_RESYNC_AT - 1:
+            snap.append(tx.ReplicaState(*(x[0].clone() for x in es.app)))
+
+    out = serve(torch, eng, tx_app, cfg, tx.make_chain(cfg, device="cuda"),
+                backend, payloads_for, on_step)
+    return (*out, sent, statuses, snap[0])
+
+
+def check_tx_log(torch, np, tx_app, cfg, es, stream, sent, statuses):
+    """The committed transactions, in commit order, are exactly the log's
+    records on every live replica, and replaying those records through a
+    numpy model of the store gives the store."""
+    chain = es.app
+    tail = int(chain.log_tail[0])
+    if tail > cfg.log_capacity:
+        raise AssertionError(f"tx: the log lapped ({tail} commits)")
+    for r in range(1, cfg.chain_len):
+        for f in ("store", "log", "log_tail", "committed"):
+            if not torch.equal(getattr(chain, f)[r], getattr(chain, f)[0]):
+                raise AssertionError(f"tx: replica {r} {f} differs from 0")
+    committed = torch.cat([ids[st == tx_app.RESP_COMMITTED]
+                           for ids, st in zip(sent, statuses)])
+    if committed.shape[0] != tail or not torch.equal(
+            chain.log[0, :tail], stream[committed]):
+        raise AssertionError("tx: the log is not the committed "
+                             "transactions in commit order")
+    records = chain.log[0, :tail].cpu().numpy()
+    m, vw = cfg.max_ops, cfg.val_words
+    ops = records[:, 1:].reshape(tail, m, 1 + vw)
+    live = np.arange(m)[None, :] < records[:, :1]
+    off = ops[..., 0][live]  # record-major, op order: the serial order
+    vals = ops[..., 1:][live]
+    # last writer wins: the first occurrence in the reversed order
+    uniq, first = np.unique(off[::-1], return_index=True)
+    want = vals[::-1][first]
+    got = chain.store[0, torch.as_tensor(uniq, device="cuda")].cpu().numpy()
+    if not np.array_equal(got, want):
+        raise AssertionError("tx: the store differs from the log's replay")
+    touched = int(chain.store[0, :-1].ne(0).any(dim=1).sum())
+    if touched != uniq.shape[0]:
+        raise AssertionError(f"tx: {touched} store rows written, the log "
+                             f"names {uniq.shape[0]}")
+    return {"commits": tail, "rows_written": int(uniq.shape[0])}
+
+
+def phase_tx_serve(torch, np, eng, tx, tx_app, tc, cfg, smi):
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    n = STEPS * BATCH + 8 * BATCH  # the main run, and the profiled steps
+    stream, bad = tx_stream(torch, cfg, n, g)
+    runs = {}
+    for backend in ("auto", "ref"):
+        torch.cuda.synchronize()
+        tc.reset_launches()
+        runs[backend] = (*tx_serve(torch, eng, tx, tx_app, cfg, stream,
+                                   backend), dict(tc.launches))
+    (es_k, dr_k, step_k, loop_k, app_fn, ecfg, sent, st_k, snap,
+     launches) = runs["auto"]
+    es_p, dr_p, step_p, loop_p, _, _, _, _, _, launches_p = runs["ref"]
+    same_responses(torch, dr_k, dr_p, "tx_serve")
+    same_state(torch, es_k, es_p, "tx_serve: final state auto vs ref")
+    del es_p, runs
+    if launches["commit_chain"] == 0 or any(launches_p.values()):
+        raise AssertionError(f"tx_serve launches: auto {launches}, "
+                             f"ref {launches_p}")
+    checked = check_tx_log(torch, np, tx_app, cfg, es_k, stream, sent, st_k)
+    all_ids, all_st = torch.cat(sent), torch.cat(st_k)
+    codes = {"committed": tx_app.RESP_COMMITTED,
+             "deferred": tx_app.RESP_DEFERRED, "malformed": MALFORMED}
+    if not torch.equal(all_st == MALFORMED, bad[all_ids]):
+        raise AssertionError("tx: MALFORMED answers differ from the "
+                             "malformed requests")
+    counts = {k: int((all_st == c).sum()) for k, c in codes.items()}
+    distinct = int(torch.unique(all_ids).shape[0])
+    served = int(es_k.served)
+    step_total = sum(step_k)
+    out = {"phase": "tx_serve", "nvidia_smi": smi, "steps": STEPS,
+           "budget": BATCH, "queues": QUEUES, "served": served, **counts,
+           "commits_per_step": counts["committed"] / STEPS,
+           "commits_per_s_steps": counts["committed"] / step_total,
+           "distinct_transactions": distinct, **checked,
+           "launches": launches,
+           "launches_per_step": {k: v / STEPS for k, v in launches.items()},
+           "kernels": step_summary(step_k, loop_k, served),
+           "plain": step_summary(step_p, loop_p, served)}
+    return out, es_k, snap, stream, app_fn, ecfg
+
+
+def phase_tx_resync(torch, tx, tc, cfg, es, snap):
+    """Replay the records committed after the snapshot into the snapshot
+    replica, one record per ``commit`` launch, and with the plain version:
+    both rebuild the final replica."""
+    final = tx.ReplicaState(*(x[0] for x in es.app))
+    lo, hi = int(snap.log_tail), int(final.log_tail)
+    records = final.log[lo:hi]
+    out = {"phase": "tx_resync", "from_step": TX_RESYNC_AT,
+           "records": hi - lo}
+    launches = None
+    for backend in ("cuda", "ref"):
+        rep = tx.ReplicaState(*(x.clone() for x in snap))
+        tc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = tx.replay_records(rep, records, cfg, kernel_backend=backend)
+        torch.cuda.synchronize()
+        out[f"{backend}_s"] = time.perf_counter() - t0
+        for f in ("store", "log", "log_tail", "committed"):
+            if not torch.equal(getattr(rep, f), getattr(final, f)):
+                raise AssertionError(f"tx_resync ({backend}): {f} differs "
+                                     "from the final replica")
+        if backend == "cuda":
+            launches = dict(tc.launches)
+        elif any(tc.launches.values()):
+            raise AssertionError(f"tx_resync ref launched {tc.launches}")
+        del rep
+    if launches["commit"] != hi - lo:
+        raise AssertionError(f"tx_resync: {launches} for {hi - lo} records")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ORCA-DLRM
+# ---------------------------------------------------------------------------
+
+def phase_dlrm_kernels(torch, np, F, dlrm, er, ref, cfg, params):
+    """embedding_reduce against its plain version on the engine's batch of
+    256 queries, f32 tables and a bf16 copy, on the DLRM layout."""
+    rng = np.random.default_rng(SEED + 5)
+    _, idx = dlrm.gen_queries(cfg, BATCH, None, 0.0, rng)
+    idx = torch.from_numpy(idx).cuda()
+    t, r, d, l = cfg.num_tables, cfg.rows, cfg.dim, cfg.lookups
+    flat = (idx + torch.arange(t, dtype=torch.int32,
+                               device="cuda")[None, :, None] * r).reshape(-1)
+    seg = torch.arange(BATCH * t, dtype=torch.int32,
+                       device="cuda").repeat_interleave(l)
+    n, s = flat.shape[0], BATCH * t
+    flat64 = flat.long()
+    offsets = torch.arange(0, n, l, device="cuda")
+    out, entries = {"phase": "dlrm_kernels", "queries": BATCH,
+                    "lookups": n, "segments": s}, {}
+    for name, tables in (("f32", params["tables"]),
+                         ("bf16", params["tables"].to(torch.bfloat16))):
+        table = tables.reshape(t * r, d)
+        lib = None
+        if name == "f32":  # the yardstick: one PyTorch call, f32 sums
+            def lib():
+                return F.embedding_bag(flat64, table, offsets, mode="sum")
+        got = er.embedding_reduce(table, flat, seg, s)
+        want = ref.embedding_reduce(table, flat, seg, s)
+        want_dlrm = ref.dlrm_embedding_reduce(tables, idx).reshape(s, d)
+        nbytes = (n * d * table.element_size() + n * 4 * 2 + s * d * 4)
+        e = kernel_entry(
+            torch, "embedding_reduce", (got, got), (want, want_dlrm),
+            lambda: er.embedding_reduce(table, flat, seg, s),
+            lambda: ref.embedding_reduce(table, flat, seg, s), nbytes, BATCH,
+            lib)
+        out[name] = {k: e[k] for k in ("mismatches", "max_abs_err", "us",
+                                       "plain_us", "library_us", "bound_us",
+                                       "device_us", "device_cold_us",
+                                       "loop_us", "plain_device_us",
+                                       "bytes")}
+        check_entries({name: e}, "dlrm_kernels")
+        if name == "f32":
+            entries["embedding_reduce"] = e
+        del table, tables
+    torch.cuda.empty_cache()
+    emit(out)
+    return entries
+
+
+def dlrm_stream(np, dlrm, cfg, n, rng):
+    """``n`` DLRM request payloads: raw queries (hit rate 0), a share of
+    NOPs and a share of INFERs with one index past the table. Returns the
+    payloads and the ops, dense features, indices and bad-index mask."""
+    dense, idx = dlrm.gen_queries(cfg, n, None, 0.0, rng)
+    op = np.where(rng.random(n) < DLRM_NOP, dlrm.OP_NOP, dlrm.OP_INFER)
+    bad = rng.random(n) < DLRM_BAD_INDEX
+    flat = idx.reshape(n, -1).copy()
+    pos = rng.integers(0, flat.shape[1], n)
+    flat[bad, pos[bad]] = cfg.rows + rng.integers(0, 1000, int(bad.sum()))
+    payloads = np.concatenate([op[:, None].astype(np.int32),
+                               dense.view(np.int32), flat], axis=1)
+    return payloads, op, dense, idx, bad
+
+
+def phase_dlrm_serve(torch, np, eng, dlrm, er, cfg, params, smi):
+    rng = np.random.default_rng(SEED + 6)
+    n = (STEPS + 8) * BATCH
+    payloads, op, dense, idx, bad = dlrm_stream(np, dlrm, cfg, n, rng)
+    payloads_t = torch.from_numpy(payloads).cuda()
+    runs = {}
+    for backend in ("auto", "ref"):
+        torch.cuda.synchronize()
+        er.reset_launches()
+        runs[backend] = (*serve(
+            torch, eng, dlrm, cfg, params, backend,
+            lambda s: payloads_t[s * BATCH: (s + 1) * BATCH]),
+            dict(er.launches))
+    es_k, dr_k, step_k, loop_k, app_fn, ecfg, launches = runs["auto"]
+    es_p, dr_p, step_p, loop_p, _, _, launches_p = runs["ref"]
+    same_responses(torch, dr_k, dr_p, "dlrm_serve")
+    same_state(torch, es_k, es_p, "dlrm_serve: final state auto vs ref")
+    if launches["embedding_reduce"] == 0 or any(launches_p.values()):
+        raise AssertionError(f"dlrm_serve launches: auto {launches}, "
+                             f"ref {launches_p}")
+    # responses in request order: request v*Q + q of a step -> pay[q, v]
+    waves = BATCH // QUEUES
+    resp = torch.cat([p[:, :waves].transpose(0, 1).reshape(BATCH, -1)
+                      for p, _ in dr_k]).cpu().numpy()
+    m = STEPS * BATCH
+    status, logit = resp[:, 0], resp[:, 1].view(np.float32)
+    infer = op[:m] == dlrm.OP_INFER
+    want_status = np.where(infer & bad[:m], MALFORMED,
+                           infer.astype(np.int32))
+    if not np.array_equal(status, want_status):
+        raise AssertionError("dlrm: statuses differ from the requests'")
+    if (resp[~infer | bad[:m], 1] != 0).any():
+        raise AssertionError("dlrm: a NOP or NACK carries a logit")
+    ok = infer & ~bad[:m]
+    direct = []
+    for lo in range(0, m, BATCH):
+        direct.append(dlrm.forward(
+            params, torch.from_numpy(dense[lo: lo + BATCH]).cuda(),
+            torch.from_numpy(np.clip(idx[lo: lo + BATCH], 0, cfg.rows - 1))
+            .cuda(), cfg, backend="auto"))
+    direct = torch.cat(direct).cpu().numpy()
+    np.testing.assert_allclose(logit[ok], direct[ok], rtol=LOGIT_RTOL,
+                               atol=LOGIT_ATOL)
+    served = int(es_k.served)
+    profile = profile_steps(torch, eng, es_k, app_fn, ecfg,
+                            payloads_t[m:])
+    profile["idle_share"] = 1 - profile["device_us_per_step"] / (
+        statistics.median(step_k) * 1e6)
+    return {"phase": "dlrm_serve", "nvidia_smi": smi, "steps": STEPS,
+            "budget": BATCH, "queues": QUEUES, "served": served,
+            "infer_ok": int(ok.sum()), "nop": int((~infer).sum()),
+            "malformed": int((infer & bad[:m]).sum()),
+            "logits_bit_equal_direct": int((logit[ok] == direct[ok]).sum()),
+            "logit_max_abs_diff_direct": float(np.abs(logit[ok]
+                                                      - direct[ok]).max()),
+            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "launches": launches,
+            "launches_per_step": {k: v / STEPS for k, v in launches.items()},
+            "kernels": step_summary(step_k, loop_k, served),
+            "plain": step_summary(step_p, loop_p, served),
+            "profile": profile}
+
+
+def phase_merci(torch, np, dlrm):
+    """MERCI: host-rewritten queries through the extended tables, with the
+    kernel, equal the plain path bit for bit and the raw queries' logits
+    within the JAX package's tolerance."""
+    cfg = dlrm.DLRMConfig(**MERCI_SHAPE)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    params = dlrm.init_params(cfg, g, device="cuda")
+    merci = dlrm.MerciIndex(cfg, seed=SEED)
+    ext = merci.build_tables(params["tables"])
+    rng = np.random.default_rng(SEED + 8)
+    out = {"phase": "merci", "rows": cfg.rows, "memo_rows": merci.n_memo,
+           "batches": MERCI_BATCHES, "queries": MERCI_QUERIES,
+           "hit_rate": MERCI_HIT_RATE, "rewrite_s": [], "saved": 0,
+           "lookups": 0, "max_abs_diff_raw": 0.0}
+    for _ in range(MERCI_BATCHES):
+        dense, idx = dlrm.gen_queries(cfg, MERCI_QUERIES, merci,
+                                      MERCI_HIT_RATE, rng)
+        t0 = time.perf_counter()
+        new_idx, saved = merci.rewrite_query(idx)
+        out["rewrite_s"].append(time.perf_counter() - t0)
+        out["saved"] += saved
+        out["lookups"] += idx.size
+        d = torch.from_numpy(dense).cuda()
+        raw = torch.from_numpy(idx).cuda()
+        mem = torch.from_numpy(new_idx).cuda()
+        k_sum = dlrm.embedding_reduce(ext, mem, backend="cuda")
+        p_sum = dlrm.embedding_reduce(ext, mem, backend="ref")
+        k = dlrm.forward(params, d, mem, cfg, tables_ext=ext, backend="cuda")
+        p = dlrm.forward(params, d, mem, cfg, tables_ext=ext, backend="ref")
+        if not (torch.equal(k_sum, p_sum) and torch.equal(k, p)):
+            raise AssertionError("merci: kernel path differs from plain")
+        r = dlrm.forward(params, d, raw, cfg, backend="cuda")
+        torch.testing.assert_close(k, r, rtol=MERCI_RTOL, atol=MERCI_ATOL)
+        out["max_abs_diff_raw"] = max(out["max_abs_diff_raw"],
+                                      float((k - r).abs().max()))
+    if out["saved"] == 0:
+        raise AssertionError("merci: no pair was rewritten")
+    out["gathers_saved_share"] = out["saved"] / out["lookups"]
+    emit(out)
 
 
 def main() -> int:
@@ -510,20 +1082,67 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
+    import torch.nn.functional as F
 
+    from repro_torch.core import dlrm
     from repro_torch.core import engine as eng
     from repro_torch.core import kvstore as kv
+    from repro_torch.core import transaction as tx
+    from repro_torch.core import tx_app
     from repro_torch.kernels import _build
+    from repro_torch.kernels import embedding_reduce as er
     from repro_torch.kernels import hash_probe as hp
     from repro_torch.kernels import ref
+    from repro_torch.kernels import tx_commit as tc
 
     torch.manual_seed(SEED)
     smi = phase_device(torch, _build)
+
+    # KVS: the store (10.2 GB) is freed before the next path
     cfg, state, stored = phase_load(torch, kv, hp)
     entries = phase_kernels(torch, kv, hp, ref, cfg, state)
     launches = phase_serve(torch, np, eng, kv, hp, cfg, state, stored, smi)
     for name, e in entries.items():
         e["launches"] = launches[name]
+    del state
+    torch.cuda.empty_cache()
+
+    # TX
+    tcfg = tx.TxConfig(**TX_SHAPE)
+    tx_entries = phase_tx_kernels(torch, tx, tc, ref, tcfg)
+    out, es, snap, stream, app_fn, ecfg = phase_tx_serve(
+        torch, np, eng, tx, tx_app, tc, tcfg, smi)
+    resync = phase_tx_resync(torch, tx, tc, tcfg, es, snap)
+    out["profile"] = profile_steps(torch, eng, es, app_fn, ecfg,
+                                   stream[STEPS * BATCH:])
+    out["profile"]["idle_share"] = 1 - out["profile"][
+        "device_us_per_step"] / out["kernels"]["step_us_median"]
+    emit(out)
+    emit(resync)
+    tx_entries["commit_chain"]["launches"] = out["launches"]["commit_chain"]
+    tx_entries["commit"]["launches"] = resync["launches"]["commit"]
+    entries.update(tx_entries)
+    del es, snap, stream
+    torch.cuda.empty_cache()
+
+    # DLRM
+    dcfg = dlrm.DLRMConfig(**DLRM_SHAPE)
+    params = dlrm.init_params(
+        dcfg, torch.Generator(device="cuda").manual_seed(SEED + 9),
+        device="cuda")
+    dl_entries = phase_dlrm_kernels(torch, np, F, dlrm, er, ref, dcfg, params)
+    out = phase_dlrm_serve(torch, np, eng, dlrm, er, dcfg, params, smi)
+    emit(out)
+    dl_entries["embedding_reduce"]["launches"] = \
+        out["launches"]["embedding_reduce"]
+    entries.update(dl_entries)
+    del params
+    torch.cuda.empty_cache()
+    phase_merci(torch, np, dlrm)
+
+    dead = [k for k, e in entries.items() if not e["launches"]]
+    if dead or len(entries) != len(KERNELS):
+        raise AssertionError(f"kernels not launched on their path: {dead}")
     emit({"kernels": list(entries.values())})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,10 @@ responses, ring response doorbells. ``run_steps`` drives several steps per
 host interaction — the unsignaled-WQE / batched-doorbell analogue.
 
 Apps plug in as ``app_fn(app_state, payloads, valid) -> (app_state,
-responses)``; ``kvstore.app_step`` is the one this package provides. This
-module is the request half of the JAX package's engine; its LM serving
-engine is not ported yet.
+responses)``; this package provides ``kvstore.app_step``,
+``tx_app.app_step`` and ``dlrm.app_step``. This module is the request
+half of the JAX package's engine; its LM serving engine is not ported
+yet.
 
 Every step is sync-free: no value is read back from the device, so the
 host only waits where a caller reads a result.
@@ -54,8 +55,8 @@ class EngineConfig(NamedTuple):
 
 def _call_app(app_fn: Callable, app, payloads, valid, cfg: EngineConfig):
     """Invoke the APU, threading ``cfg.kernel_backend`` to apps that take
-    it (``kvstore.app_step``); plain 3-arg closures keep their own
-    dispatch defaults."""
+    it (the ``app_step`` of each app module); plain 3-arg closures keep
+    their own dispatch defaults."""
     try:
         params = inspect.signature(app_fn).parameters
     except (TypeError, ValueError):  # builtins/partials without signatures
@@ -85,8 +86,8 @@ class EngineState(NamedTuple):
     """One engine's complete state: the request and response rings, the
     cpoll region, the scheduler, the app's state and four scalar counters
     (all int32). The app state may be updated in place by the app (the KVS
-    commits its buckets and pool in place); everything else is new
-    tensors each step."""
+    commits its buckets and pool in place, TX its chain's log and store);
+    everything else is new tensors each step."""
 
     req: rb.RingState
     resp: rb.RingState
@@ -100,10 +101,13 @@ class EngineState(NamedTuple):
 
 
 def _device_of(tree):
-    """The device of the first tensor in a tensor or (Named)tuple tree."""
+    """The device of the first tensor in a tree of tensors, (Named)tuples,
+    lists and dicts (the DLRM app state is its params dict)."""
     if isinstance(tree, torch.Tensor):
         return tree.device
-    for x in tree if isinstance(tree, tuple) else ():
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    for x in tree if isinstance(tree, (tuple, list)) else ():
         dev = _device_of(x)
         if dev is not None:
             return dev

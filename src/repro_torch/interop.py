@@ -19,6 +19,7 @@ from repro_torch.core import engine as eng
 from repro_torch.core import kvstore as kv
 from repro_torch.core import ringbuf as rb
 from repro_torch.core import scheduler as sched
+from repro_torch.core import transaction as tx
 
 
 def to_numpy(state):
@@ -32,12 +33,23 @@ def to_numpy(state):
     if isinstance(state, (tuple, list)):
         return [to_numpy(v) for v in state]
     if isinstance(state, torch.Tensor):
-        return state.detach().cpu().numpy().copy()
+        t = state.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            # numpy has no bfloat16 of its own; ml_dtypes' is the one JAX
+            # arrays convert to, so both sides compare as the same dtype
+            import ml_dtypes
+
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+        return t.numpy().copy()
     return np.array(state, copy=True)
 
 
 def _tensor(x, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    x = np.array(x, copy=True)
+    if x.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(x).to(device)
 
 
 def _named(cls, d, device):
@@ -48,14 +60,35 @@ def kv_state_from_numpy(d, device) -> kv.KVState:
     return _named(kv.KVState, d, device)
 
 
-def engine_state_from_numpy(d, device) -> eng.EngineState:
-    """An ``EngineState`` serving the KVS, from its nested dict."""
+def replica_state_from_numpy(d, device) -> tx.ReplicaState:
+    """A ``ReplicaState``: one replica, or a chain (leading replica axis)."""
+    return _named(tx.ReplicaState, d, device)
+
+
+def dlrm_params_from_numpy(d, device) -> dict:
+    """DLRM params ``{"tables", "bottom": [{"w", "b"}, ...], "top": [...]}``
+    with every array's dtype kept (bf16 included)."""
+    return {
+        "tables": _tensor(d["tables"], device),
+        **{part: [{k: _tensor(v, device) for k, v in layer.items()}
+                  for layer in d[part]]
+           for part in ("bottom", "top")},
+    }
+
+
+def engine_state_from_numpy(d, device,
+                            app_from_numpy=kv_state_from_numpy
+                            ) -> eng.EngineState:
+    """An ``EngineState`` from its nested dict. ``app_from_numpy(d, device)``
+    builds the app's state: :func:`kv_state_from_numpy` (the default) for
+    the KVS, :func:`replica_state_from_numpy` for a TX chain,
+    :func:`dlrm_params_from_numpy` for DLRM."""
     return eng.EngineState(
         req=_named(rb.RingState, d["req"], device),
         resp=_named(rb.RingState, d["resp"], device),
         cpoll=_named(cp.CpollState, d["cpoll"], device),
         sched=_named(sched.SchedState, d["sched"], device),
-        app=kv_state_from_numpy(d["app"], device),
+        app=app_from_numpy(d["app"], device),
         **{f: _tensor(d[f], device)
            for f in ("steps", "served", "timed_out", "shed")},
     )

@@ -10,85 +10,30 @@ GET (primary bucket, overflow bucket, value row) and four per PUT:
   ``write_rows``     PUT scatter pass 2: value rows into the pool
 
 ``get`` composes probe and fetch, ``insert`` the two scatter passes. The
-wrappers take CUDA tensors only (the dispatcher in ``ops`` sends CPU
-tensors to the plain versions in ``ref``), check dtype, shape and
-contiguity, allocate the outputs, launch on the current stream without
-synchronising, and raise if the launch is refused. The commit wrappers
-update the state arrays IN PLACE, like the TPU kernels'
-``input_output_aliases``.
-
-``launches`` counts, per kernel, the launches made since the last
-:func:`reset_launches`: each wrapper adds one where it launches and
-nowhere else, so a run can show that it went through the kernels.
+wrappers follow ``_launch`` (CUDA tensors only, checked, launched on the
+current stream); the commit wrappers update the state arrays IN PLACE,
+like the TPU kernels' ``input_output_aliases``. ``launches`` counts each
+kernel's launches since the last :func:`reset_launches`.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels._launch import LL, I, P, Library, check as _check
+from repro_torch.kernels._launch import same as _same
 
 I32 = torch.int32
 KERNELS = ("probe", "fetch", "cache_probe", "commit_buckets", "write_rows")
-launches = dict.fromkeys(KERNELS, 0)
-
-_P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_SIGNATURES = {
-    "orca_probe": [_P] * 7 + [_LL, _LL, _I, _I, _P],
-    "orca_fetch": [_P] * 3 + [_LL, _LL, _I, _P],
-    "orca_cache_probe": [_P] * 8 + [_LL, _LL, _I, _I, _I, _P],
-    "orca_commit_buckets": [_P] * 6 + [_LL, _LL, _I, _I, _P],
-    "orca_write_rows": [_P] * 3 + [_LL, _LL, _I, _P],
-}
-_typed: dict = {}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
-def _entry(name: str):
-    """The typed C entry point ``name`` of the hash_probe library."""
-    fn = _typed.get(name)
-    if fn is None:
-        lib = _build.load("hash_probe")
-        fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        _typed[name] = fn
-    return fn
-
-
-def _launch(kernel: str, entry: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = _entry(entry)(*args, stream)
-    _build.check(_build.load("hash_probe"), code, f"hash_probe.{kernel}")
-    launches[kernel] += 1
-
-
-def _check(name: str, t: torch.Tensor, ndim: int, device,
-           dtype=I32) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(
-            f"{name}: the CUDA kernel takes CUDA tensors, got {t.device} "
-            "(CPU tensors go to the plain versions: backend auto or ref)"
-        )
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _same(name: str, got, want) -> None:
-    if tuple(got) != tuple(want):
-        raise ValueError(f"{name}: shape {tuple(got)}, expected {tuple(want)}")
+_lib = Library("hash_probe", KERNELS, {
+    "orca_probe": [P] * 7 + [LL, LL, I, I],
+    "orca_fetch": [P] * 3 + [LL, LL, I],
+    "orca_cache_probe": [P] * 8 + [LL, LL, I, I, I],
+    "orca_commit_buckets": [P] * 6 + [LL, LL, I, I],
+    "orca_write_rows": [P] * 3 + [LL, LL, I],
+})
+launches = _lib.launches
+reset_launches = _lib.reset
+_launch = _lib.launch
 
 
 def probe(bucket_keys, bucket_ptr, keys, h1, h2):

@@ -9,8 +9,10 @@ launch failure raises, it never falls back.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import embedding_reduce as _er
 from repro_torch.kernels import hash_probe as _hp
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import tx_commit as _tc
 
 
 def resolve_backend(backend, device) -> bool:
@@ -69,3 +71,35 @@ def hash_put(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp,
         bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp,
         bucket_order, row_order,
     )
+
+
+def tx_commit(log, store, batch, values, slot, rows, *, backend="auto"):
+    """Fused ORCA-TX replica commit (``transaction.plan_commit`` output):
+    write-ahead log append + store scatter, IN PLACE on both backends.
+    Sentinel-targeted payloads (slot == LC, rows == NK) are zeroed.
+    Returns the updated (log, store): the same tensors."""
+    if resolve_backend(backend, batch.device):
+        return _ref.tx_commit(log, store, batch, values, slot, rows)
+    return _tc.commit(log, store, batch, values, slot, rows)
+
+
+def tx_commit_chain(log, store, batch, values, slot, rows, *,
+                    backend="auto"):
+    """Whole-chain fused ORCA-TX commit, IN PLACE: every replica of a
+    local chain in one dual scatter (``transaction.chain_commit_apply``).
+    slot: (R, B) per-replica log slots; rows: (B*M,) shared or (R, B*M)
+    per replica. Returns the updated (log, store): the same tensors."""
+    if resolve_backend(backend, batch.device):
+        return _ref.tx_commit_chain(log, store, batch, values, slot, rows)
+    return _tc.commit_chain(log, store, batch, values, slot, rows)
+
+
+def embedding_reduce(table, idx, seg_ids, num_segments: int, *,
+                     backend="auto"):
+    """Gather + segment sum: (R, D), (N,), (N,) -> (num_segments, D) f32,
+    each segment added in lookup order from its first row, empty segments
+    zero — the JAX package's Pallas kernel together with the zeroing its
+    ``ops.embedding_reduce`` adds."""
+    if resolve_backend(backend, idx.device):
+        return _ref.embedding_reduce(table, idx, seg_ids, num_segments)
+    return _er.embedding_reduce(table, idx, seg_ids, num_segments)

@@ -1,17 +1,19 @@
-"""Plain PyTorch versions of the hash-table kernels: what the CPU runs, and
-what ``chip_smoke.py`` holds each CUDA kernel against on the card.
+"""Plain PyTorch versions of the kernels: what the CPU runs, and what
+``chip_smoke.py`` holds each CUDA kernel against on the card.
 
 Each has the signature and the sentinel semantics of its counterpart in
-the JAX package's ``kernels/ref.py``. The state arrays use the
-sentinel-resident ``KVState`` layout: the last row of ``bucket_keys``,
-``bucket_ptr``, ``pool`` and the cache arrays is an all-zero pad row that
-absorbs dropped writes.
+the JAX package's ``kernels/ref.py``. The integer state arrays use the
+sentinel-resident layout: the last row of ``bucket_keys``, ``bucket_ptr``,
+``pool`` and the cache arrays (``KVState``), and of a replica's ``log``
+and ``store`` (``ReplicaState``), is an all-zero pad row that absorbs
+dropped writes.
 """
 from __future__ import annotations
 
 import torch
 
 I32 = torch.int32
+F32 = torch.float32
 
 
 def hash_probe(bucket_keys, bucket_ptr, keys, h1, h2):
@@ -101,3 +103,95 @@ def hash_put(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp):
     commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val)
     write_rows(pool, vals, wp)
     return bucket_keys, bucket_ptr, pool
+
+
+# ---------------------------------------------------------------------------
+# ORCA-TX: the fused replica commit (log append + store scatter)
+# ---------------------------------------------------------------------------
+
+def tx_commit(log, store, batch, values, slot, rows):
+    """Fused ORCA-TX replica commit (see ``core.transaction.plan_commit``),
+    IN PLACE, as the CUDA kernel is: ``log`` and ``store`` are written and
+    returned. log: (LC + 1, TW); store: (NK + 1, VW) — the
+    ``ReplicaState`` sentinel-resident layout (last row = the zero
+    sentinel). batch: (B, TW) raw log records; values: (B, M, VW); slot:
+    (B,) absolute log slot (LC = the sentinel); rows: (B*M,) store row per
+    op (NK = the sentinel). The plan makes live targets unique, so both
+    scatters are conflict-free; sentinel-targeted payloads are zeroed, so
+    dead duplicates write identical zeros and the sentinel rows stay zero.
+    """
+    lc = log.shape[0] - 1
+    nk = store.shape[0] - 1
+    vals = values.reshape(-1, values.shape[-1])
+    log[slot] = torch.where((slot >= lc)[:, None], 0, batch)
+    store[rows] = torch.where((rows >= nk)[:, None], 0, vals)
+    return log, store
+
+
+def tx_commit_chain(log, store, batch, values, slot, rows):
+    """Whole-chain commit, IN PLACE: :func:`tx_commit` on every replica of
+    a local chain in one batched dual scatter. log: (R, LC + 1, TW); store:
+    (R, NK + 1, VW); batch: (B, TW) and values: (B, M, VW) shared by every
+    replica; slot: (R, B) per-replica absolute log slot (LC = the
+    sentinel); rows: (B*M,) store row per op shared by every replica, or
+    (R, B*M) per replica (chain shortening points a dead replica's ops at
+    its own sentinel row). Returns the (log, store) tensors."""
+    r = log.shape[0]
+    lc = log.shape[1] - 1
+    nk = store.shape[1] - 1
+    vals = values.reshape(-1, values.shape[-1])
+    if rows.dim() == 1:
+        rows = rows[None, :].expand(r, -1)
+    ridx = torch.arange(r, device=log.device)[:, None]
+    log[ridx, slot] = torch.where((slot >= lc)[..., None], 0, batch[None])
+    store[ridx, rows] = torch.where((rows >= nk)[..., None], 0, vals[None])
+    return log, store
+
+
+# ---------------------------------------------------------------------------
+# ORCA-DLRM: the embedding reduction
+# ---------------------------------------------------------------------------
+
+def embedding_reduce(table, idx, seg_ids, num_segments: int):
+    """Gather + segment sum: (R, D), (N,), (N,) -> (num_segments, D) f32.
+
+    ``seg_ids`` is non-decreasing. Each segment sums its rows in lookup
+    order starting from its first row (converted to f32), never from +0.0
+    — the order of the Pallas kernel's per-segment accumulator and of
+    :func:`dlrm_embedding_reduce`, so the sums agree bit for bit. Segments
+    with no entries are zero (the zeroing ``ops.embedding_reduce`` adds to
+    the Pallas kernel)."""
+    n = idx.shape[0]
+    dev = table.device
+    if n == 0:
+        return torch.zeros((num_segments, table.shape[1]), dtype=F32,
+                           device=dev)
+    rows = table[idx].to(F32)  # (N, D)
+    seg = seg_ids.to(torch.int64)
+    ids = torch.arange(num_segments, dtype=torch.int64, device=dev)
+    start = torch.searchsorted(seg, ids)
+    count = torch.searchsorted(seg, ids, right=True) - start
+    nonempty = (count > 0)[:, None]
+    last = n - 1
+    out = torch.where(nonempty, rows[torch.clamp(start, max=last)], 0.0)
+    longest = int(count.max()) if num_segments else 0
+    for j in range(1, longest):
+        more = (count > j)[:, None]
+        out = torch.where(more, out + rows[torch.clamp(start + j, max=last)],
+                          out)
+    return out
+
+
+def dlrm_embedding_reduce(tables, idx):
+    """DLRM-shaped reduction: (T, R', D), (B, T, L) -> (B, T, D) f32.
+
+    Lookups are added one after another, starting from the first — the
+    association order of a per-row walk over the lookup list, which the
+    JAX package pins (``kernels/ref.py``), so the f32 sums agree with it
+    and with the CUDA kernel bit for bit."""
+    t_ids = torch.arange(tables.shape[0], device=tables.device)[None, :, None]
+    g = tables[t_ids, idx].to(F32)  # (B, T, L, D)
+    out = g[:, :, 0]
+    for j in range(1, g.shape[2]):
+        out = out + g[:, :, j]
+    return out

@@ -11,10 +11,15 @@ import pytest
 import torch
 
 from repro_torch import interop
+from repro_torch.core import dlrm
 from repro_torch.core import engine as eng
 from repro_torch.core import kvstore as kv
+from repro_torch.core import transaction as tx
+from repro_torch.core import tx_app
+from repro_torch.kernels import embedding_reduce as er
 from repro_torch.kernels import hash_probe as hp
 from repro_torch.kernels import ref
+from repro_torch.kernels import tx_commit as tc
 
 pytestmark = pytest.mark.cuda
 
@@ -34,10 +39,20 @@ def _i32(rng, lo, hi, shape):
     return torch.from_numpy(rng.integers(lo, hi, shape).astype(np.int32))
 
 
+def _flat(x):
+    """The leaves of a nested dict/list of numpy arrays, in order."""
+    if isinstance(x, dict):
+        x = list(x.values())
+    return [y for v in x for y in _flat(v)] if isinstance(x, list) else [x]
+
+
 def _same(want, got, what):
-    a, b = interop.to_numpy(want), interop.to_numpy(got)
-    for x, y in zip(a if isinstance(a, list) else [a],
-                    b if isinstance(b, list) else [b]):
+    """Two states (tensors, tuples, NamedTuples) equal leaf for leaf, in
+    dtype, shape and value."""
+    a = _flat(interop.to_numpy(want))
+    b = _flat(interop.to_numpy(got))
+    assert len(a) == len(b), what
+    for x, y in zip(a, b):
         assert x.dtype == y.dtype and np.array_equal(x, y), what
 
 
@@ -137,15 +152,194 @@ def test_engine_kvs_kernels_equal_plain_on_the_card(dev, cache_sets):
         torch.cuda.synchronize()
         runs[backend] = (interop.to_numpy((state, out)), dict(hp.launches))
     (a, launches), (b, plain_launches) = runs["auto"], runs["ref"]
-    def flat(x):
-        if isinstance(x, dict):
-            x = list(x.values())
-        return [y for v in x for y in flat(v)] if isinstance(x, list) else [x]
-
-    for x, y in zip(flat(a), flat(b), strict=True):
+    for x, y in zip(_flat(a), _flat(b), strict=True):
         assert x.dtype == y.dtype and np.array_equal(x, y)
     want = {"probe", "fetch", "commit_buckets", "write_rows"}
     if cache_sets:
         want.add("cache_probe")
     assert all(launches[k] > 0 for k in want), launches
     assert not any(plain_launches.values())
+
+
+# ------------------------------ TX ------------------------------------------
+
+def _tx_plan(rng, cfg, b, dev):
+    """A planned batch of b random transactions on few offsets (conflicts,
+    intra-tx duplicates), on ``dev``."""
+    w = tx.tx_words(cfg)
+    batch = np.zeros((b, w), np.int32)
+    batch[:, 0] = rng.integers(1, cfg.max_ops + 1, b)
+    ops = batch[:, 1:].reshape(b, cfg.max_ops, 1 + cfg.val_words)
+    ops[..., 0] = rng.integers(0, max(cfg.num_keys // 2, 1),
+                               (b, cfg.max_ops))
+    ops[..., 1:] = rng.integers(-999, 999, (b, cfg.max_ops, cfg.val_words))
+    batch[:, 1:] = ops.reshape(b, -1)
+    return tx.plan_commit(torch.from_numpy(batch).to(dev), cfg)
+
+
+@pytest.mark.parametrize("shape", [(16, 2, 3, 3, 4), (300, 16, 8, 3, 64),
+                                   (64, 33, 5, 1, 8)])
+@pytest.mark.parametrize("b", [1, 7, 300])
+def test_tx_kernels_match_plain_versions(dev, shape, b):
+    """commit and commit_chain against their plain versions: random
+    sentinel-resident states, skewed tails (so slots lap the ring), a
+    dead replica, shared and per-replica rows."""
+    nk, vw, m, r, lc = shape
+    cfg = tx.TxConfig(num_keys=nk, val_words=vw, max_ops=m, chain_len=r,
+                      log_capacity=lc)
+    rng = np.random.default_rng(nk + b)
+    store = _i32(rng, -99, 99, (r, nk + 1, vw))
+    log = _i32(rng, -99, 99, (r, lc + 1, tx.tx_words(cfg)))
+    store[:, nk], log[:, lc] = 0, 0
+    plan = _tx_plan(rng, cfg, b, "cpu")
+    live = torch.ones(r, dtype=torch.bool)
+    live[r // 2] = r == 1
+    tail = _i32(rng, 0, 3 * lc, (r,))
+    chain = tx.ReplicaState(store, log, tail, tail, live)
+    d = lambda x: x.to(dev)  # noqa: E731
+    want = tx.chain_commit_apply(tx.ReplicaState(*(x.clone() for x in chain)),
+                                 plan, kernel_backend="ref")
+    got = tx.chain_commit_apply(tx.ReplicaState(*(d(x) for x in chain)),
+                                type(plan)(*(d(x) for x in plan)),
+                                kernel_backend="cuda")
+    torch.cuda.synchronize()
+    _same(want, got, "commit_chain (per-replica rows)")
+    # shared rows: every replica live
+    slot = torch.where(plan.proceed, (tail[:, None] + plan.log_rank) % lc, lc)
+    slot = slot.to(torch.int32)
+    args = (plan.batch, plan.values, slot, plan.store_rows)
+    want = ref.tx_commit_chain(log.clone(), store.clone(), *args)
+    got = tc.commit_chain(d(log), d(store), *(d(x) for x in args))
+    torch.cuda.synchronize()
+    _same(want, got, "commit_chain (shared rows)")
+    # one replica
+    rep = tx.ReplicaState(store[0], log[0], tail[0], tail[0],
+                          torch.tensor(True))
+    want = tx.replica_commit(tx.ReplicaState(*(x.clone() for x in rep)), plan)
+    got = tx.replica_commit(tx.ReplicaState(*(d(x) for x in rep)),
+                            type(plan)(*(d(x) for x in plan)),
+                            kernel_backend="cuda")
+    torch.cuda.synchronize()
+    _same(want, got, "commit")
+
+
+def test_tx_wrappers_reject_bad_tensors(dev):
+    cfg = tx.TxConfig(num_keys=8, val_words=2, max_ops=2, chain_len=2,
+                      log_capacity=4)
+    chain = tx.make_chain(cfg, device=dev)
+    plan = _tx_plan(np.random.default_rng(0), cfg, 3, dev)
+    slot = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        tc.commit_chain(chain.log, chain.store, plan.batch, plan.values,
+                        slot[:1], plan.store_rows)
+    with pytest.raises(TypeError, match="dtype"):
+        tc.commit_chain(chain.log, chain.store, plan.batch, plan.values,
+                        slot.long(), plan.store_rows)
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.commit(chain.log[0], chain.store[0], plan.batch, plan.values,
+                  torch.zeros((3, 2), dtype=torch.int32, device=dev)[:, 0],
+                  plan.store_rows)
+
+
+# ------------------------------ DLRM ----------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,segs,d", [(1, 1, 8), (300, 40, 64), (70, 9, 200)])
+def test_embedding_reduce_matches_plain_version(dev, dtype, n, segs, d):
+    """Bit for bit against the plain version: empty segments, duplicate
+    rows, D above one 128-column chunk, bf16 tables."""
+    rng = np.random.default_rng(n + d)
+    table = torch.from_numpy(rng.normal(size=(50, d)).astype(np.float32))
+    table = table.to(dtype)
+    idx = _i32(rng, 0, 50, (n,))
+    idx[n // 2:] = idx[: n - n // 2].clone()
+    keep = np.setdiff1d(np.arange(segs), [0, segs // 2])
+    seg = torch.from_numpy(np.sort(rng.choice(keep if len(keep) else [0], n))
+                           .astype(np.int32))
+    want = ref.embedding_reduce(table, idx, seg, segs)
+    got = er.embedding_reduce(table.to(dev), idx.to(dev), seg.to(dev), segs)
+    torch.cuda.synchronize()
+    _same(want, got, "embedding_reduce")
+
+
+def test_dlrm_embedding_path_matches_plain_on_the_card(dev):
+    cfg = dlrm.DLRMConfig(num_tables=4, rows=128, dim=64, lookups=16)
+    params = dlrm.init_params(cfg, torch.Generator().manual_seed(1),
+                              device=dev)
+    idx = torch.randint(0, cfg.rows, (33, 4, 16), dtype=torch.int32,
+                        device=dev)
+    want = dlrm.embedding_reduce(params["tables"], idx, backend="ref")
+    er.reset_launches()
+    got = dlrm.embedding_reduce(params["tables"], idx, backend="auto")
+    torch.cuda.synchronize()
+    assert er.launches["embedding_reduce"] == 1
+    _same(want, got, "dlrm embedding_reduce")
+
+
+def _engine_pair(app_step, app_cfg, make_state, w, inject_fn, rounds=10):
+    runs = {}
+    for backend in ("auto", "ref"):
+        ecfg = eng.EngineConfig(num_queues=4, capacity=16, req_words=w,
+                                resp_words=w, budget=8,
+                                kernel_backend=backend)
+        state = eng.make(ecfg, make_state())
+        app = eng.bind_app(app_step, app_cfg, ecfg)
+        rng = np.random.default_rng(7)
+        tc.reset_launches()
+        er.reset_launches()
+        out = []
+        for _ in range(rounds):
+            state = eng.inject(state, torch.arange(4), inject_fn(rng))
+            state, stats = eng.run_steps(state, app, ecfg, 2)
+            pay, counts, state = eng.drain_responses(state, 16)
+            out.append((stats, pay, counts))
+        torch.cuda.synchronize()
+        runs[backend] = (interop.to_numpy((state, out)),
+                         {**tc.launches, **er.launches})
+    return runs
+
+
+def test_engine_tx_kernels_equal_plain_on_the_card(dev):
+    cfg = tx.TxConfig(num_keys=64, val_words=4, max_ops=3, chain_len=3,
+                      log_capacity=16)
+    w = tx_app.request_words(cfg)
+
+    def inject(rng):
+        pl = np.zeros((4, w), np.int32)
+        pl[:, 0] = rng.integers(0, cfg.max_ops + 2, 4)  # some MALFORMED
+        ops = pl[:, 1:].reshape(4, cfg.max_ops, 1 + cfg.val_words)
+        ops[..., 0] = rng.integers(0, 8, (4, cfg.max_ops))
+        ops[..., 1:] = rng.integers(-99, 99, (4, cfg.max_ops, cfg.val_words))
+        pl[:, 1:] = ops.reshape(4, -1)
+        return torch.from_numpy(pl)
+
+    runs = _engine_pair(tx_app.app_step, cfg,
+                        lambda: tx.make_chain(cfg, device=dev), w, inject)
+    (a, launches), (b, plain) = runs["auto"], runs["ref"]
+    for x, y in zip(_flat(a), _flat(b), strict=True):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert launches["commit_chain"] > 0, launches
+    assert not any(plain.values())
+
+
+def test_engine_dlrm_kernels_equal_plain_on_the_card(dev):
+    cfg = dlrm.DLRMConfig(num_tables=3, rows=64, dim=16, lookups=8,
+                          dense_features=5)
+    params = dlrm.init_params(cfg, torch.Generator().manual_seed(2),
+                              device=dev)
+    w = dlrm.request_words(cfg)
+
+    def inject(rng):
+        dense, idx = dlrm.gen_queries(cfg, 4, None, 0.0, rng)
+        pl = np.zeros((4, w), np.int32)
+        pl[:, 0] = rng.choice([0, 1, 1, 3], 4)
+        pl[:, 1: 1 + cfg.dense_features] = dense.view(np.int32)
+        pl[:, 1 + cfg.dense_features:] = idx.reshape(4, -1)
+        return torch.from_numpy(pl)
+
+    runs = _engine_pair(dlrm.app_step, cfg, lambda: params, w, inject)
+    (a, launches), (b, plain) = runs["auto"], runs["ref"]
+    for x, y in zip(_flat(a), _flat(b), strict=True):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert launches["embedding_reduce"] > 0, launches
+    assert not any(plain.values())

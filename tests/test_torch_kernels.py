@@ -206,7 +206,11 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.interop\n"
         "import repro_torch.core.engine, repro_torch.core.kvstore\n"
+        "import repro_torch.core.transaction, repro_torch.core.tx_app\n"
+        "import repro_torch.core.dlrm\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.hash_probe\n"
+        "import repro_torch.kernels.tx_commit\n"
+        "import repro_torch.kernels.embedding_reduce\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
