@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's three request apps — the KVS, chain-replicated
-transactions (TX) and DLRM inference — through the ORCA request engine and
-the hand-written CUDA kernels, at deployment sizes, and holds every kernel
-against its plain PyTorch version.
+transactions (TX) and DLRM inference — and paged LM serving of
+Qwen2.5-14B through the ORCA engine and the hand-written CUDA kernels, at
+deployment sizes, and holds every kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -39,7 +40,21 @@ Phases, each printing one JSON line:
                   and a ``ref`` engine: equal responses, logits equal a
                   direct ``forward``, malformed requests NACKed;
 10. merci       — MERCI-rewritten queries at the JAX bench's table size:
-                  kernel path equals the plain path, and the raw logits.
+                  kernel path equals the plain path, and the raw logits;
+11. lm_kernels  — paged_attention_stats and flash_attention against their
+                  plain versions at the serve shapes (a 32-sequence pool
+                  of 16-token pages, 8 prompts of 512 tokens, 40 q / 8 kv
+                  heads), bf16 and f32, flash also with window 128;
+12. lm_serve_f32 — Qwen2.5-14B at full width cut to 4 layers, f32: the
+                  kernel engine and the plain engine give equal token
+                  streams and page pools within 1e-5 of each layer's scale;
+13. lm_serve    — all 48 layers in bf16 with the flash prefill, 96
+                  requests (512-token prompts, caps up to 128) through 32
+                  slots: the kernel engine (the launch counts), the plain
+                  engine (free-running agreement, reported), a
+                  teacher-forced check over 40 decode steps that must
+                  decide at least 10% (and 64) of its rows with equal
+                  argmax, and a per-layer walk check of the live pool.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch raises and exits non-zero before the last line. Without a
@@ -86,6 +101,10 @@ KERNELS = {
     "commit_chain": ("tx_commit.cu", "src/repro/kernels/tx_commit.py", 118),
     "embedding_reduce": ("embedding_reduce.cu",
                          "src/repro/kernels/embedding_reduce.py", 37),
+    "paged_attention_stats": ("paged_attention.cu",
+                              "src/repro/kernels/paged_attention.py", 89),
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py", 68),
 }
 
 # ORCA-TX: 64-B values (benchmarks/bench_tx.py), the usual chain
@@ -108,6 +127,27 @@ MERCI_BATCHES, MERCI_QUERIES, MERCI_HIT_RATE = 3, 64, 0.6
 MALFORMED = -1  # the NACK status word (repro_torch/core/status.py)
 LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6  # tests/test_kernel_dispatch.py
 MERCI_RTOL, MERCI_ATOL = 1e-3, 1e-4  # tests/test_dlrm.py
+# LM serving: Qwen2.5-14B at its full width (src/repro_torch/configs/
+# qwen2_5_14b.py: 48 layers, d_model 5120, 40 q / 8 kv heads, hd 128,
+# d_ff 13824, vocab 152064, bf16), random weights from the seed
+LM_ARCH = "qwen2.5-14b"
+LM_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=128,
+                 slots=32, admit_per_step=8, paged=True, page_size=16)
+LM_REQUESTS = 96
+LM_F32_LAYERS, LM_F32_REQUESTS = 4, 32
+LM_SNAPSHOT_STEP = 24  # the engine step the teacher-forced check starts at
+LM_TF_STEPS = 40  # teacher-forced decode steps (at least 32)
+# the profiled window: a copy of the engine state after this step runs the
+# next LM_PROFILE_STEPS steps under torch.profiler
+LM_PROFILE_STEP, LM_PROFILE_STEPS = 40, 16
+LM_DECIDED_SHARE, LM_DECIDED_MIN = 0.10, 64
+# kernel vs plain version: tests/test_kernels.py (1e-5 f32, 2e-5 f32
+# flash, 3e-2 bf16); the f32 pools of the two engines: max |diff| within
+# 1e-5 of each layer's largest |value|
+LM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+FLASH_F32_TOL = 2e-5
+POOL_REL_TOL = 1e-5
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
 
 
 def emit(obj) -> None:
@@ -1074,6 +1114,486 @@ def phase_merci(torch, np, dlrm):
     emit(out)
 
 
+# ---------------------------------------------------------------------------
+# LM serving: paged decode and flash prefill of Qwen2.5-14B
+# ---------------------------------------------------------------------------
+
+def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
+                dtype, lib_fn=None):
+    """One floating-point kernel against its plain version on the same
+    inputs: elements outside ``tol`` (allclose, rtol = atol = tol), the
+    largest |difference|, times (CUDA events, profiler device time, L2
+    warm and cold), the plain version's and the library call's, and the
+    bound: the larger of the bytes over the memory rate and the flops
+    over the peak rate of the input type."""
+    miss, err = 0, 0.0
+    for a, b in zip(outs_k, outs_p):
+        a, b = a.float(), b.float()
+        err = max(err, float((a - b).abs().max()))
+        miss += int((~torch.isclose(a, b, rtol=tol, atol=tol)).sum())
+    us = time_us(torch, k_fn)
+    plain_us = time_us(torch, p_fn)
+    lib_us = time_us(torch, lib_fn) if lib_fn is not None else None
+    k_dev, _ = device_us(torch, k_fn)
+    p_dev, _ = device_us(torch, p_fn)
+    k_cold = cold_device_us(torch, k_fn)
+    bytes_us = nbytes / HBM_BYTES_PER_S * 1e6
+    flops_us = flops / PEAK_FLOPS[dtype] * 1e6
+    bound_us = max(bytes_us, flops_us)
+    src, jax_file, line = KERNELS[name]
+    return {
+        "name": name, "route": "cuda", "source": _CSRC + src,
+        "replaces": f"{jax_file}:{line}",
+        "jax_function": f"{jax_file}::{name}", "mismatches": miss,
+        "tolerance": tol, "max_abs_err": err, "ms": us / 1e3,
+        "plain_ms": plain_us / 1e3, "bound_ms": bound_us / 1e3,
+        "bound_by": "bytes" if bytes_us >= flops_us else "operations",
+        "library_ms": None if lib_us is None else lib_us / 1e3,
+        "us": us, "plain_us": plain_us, "library_us": lib_us,
+        "bound_us": bound_us, "bytes": nbytes, "flops": flops,
+        "device_us": k_dev, "device_cold_us": k_cold,
+        "plain_device_us": p_dev,
+        "tflops_per_s": flops / (k_dev * 1e-6) / 1e12 if k_dev else None,
+    }
+
+
+def lm_pool_inputs(torch, np, dtype, seed):
+    """A pool and page table as the serve engine's decode steps see them:
+    32 sequences mid-generation (512-639 tokens) on random pages of a
+    1,280-page pool (32 slots x 40 pages) plus the zero sentinel, the
+    rest of each table row -1; q pre-scaled f32 (32, 8, 5, 128)."""
+    b, kvh, g, hd = LM_ENGINE["slots"], 8, 5, 128
+    ps = LM_ENGINE["page_size"]
+    maxp = -(-(LM_ENGINE["prompt_len"] + LM_ENGINE["gen_len"] - 1) // ps)
+    n_pages = b * maxp
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(LM_ENGINE["prompt_len"], maxp * ps, b)
+    perm = rng.permutation(n_pages)
+    table = np.full((b, maxp), -1, np.int32)
+    used = 0
+    for i, n in enumerate(-(-lengths // ps)):
+        table[i, :n] = perm[used: used + n]
+        used += n
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n_pages + 1, ps, kvh, hd)
+    kp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    vp = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    kp[-1] = 0
+    vp[-1] = 0
+    q = torch.randn((b, kvh, g, hd), generator=gen, device="cuda") * hd ** -0.5
+    return (q, kp, vp, torch.from_numpy(table).cuda(),
+            torch.from_numpy(lengths.astype(np.int32)).cuda())
+
+
+def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
+    """Both LM kernels against their plain versions at the serve shapes:
+    the paged stats walk on a bf16 and an f32 pool, flash prefill
+    attention (8 prompts of 512 tokens, 40 q / 8 kv heads) in bf16 and
+    f32, and windowed (128). Returns the bf16 entries of the main path."""
+    out, entries = {"phase": "lm_kernels", "nvidia_smi": smi}, {}
+    for key, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        args = lm_pool_inputs(torch, np, dt, SEED + 20)
+        q, kp, vp, table, lengths = args
+        b, kvh, g, hd = q.shape
+        tokens = int(lengths.sum())
+        nbytes = (q.numel() * 4 * 2 + 2 * tokens * kvh * hd * kp.element_size()
+                  + table.numel() * 4 + lengths.numel() * 4
+                  + 2 * b * kvh * g * 4)
+        flops = 4 * g * hd * kvh * tokens
+        e = float_entry(
+            torch, "paged_attention_stats", pa.paged_attention_stats(*args),
+            ref.paged_attention_stats(*args),
+            lambda: pa.paged_attention_stats(*args),
+            lambda: ref.paged_attention_stats(*args), LM_TOL[key], nbytes,
+            flops, key)
+        e["tokens"] = tokens
+        out[f"paged_{key}"] = e
+        if key == "bfloat16":
+            entries["paged_attention_stats"] = e
+        del args, q, kp, vp
+        torch.cuda.empty_cache()
+    b, h, kvh, s, hd = 8, 40, 8, LM_ENGINE["prompt_len"], 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    for key, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        q = torch.randn((b, h, s, hd), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, kvh, s, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, kvh, s, hd), generator=gen, device="cuda").to(dt)
+        for window in (0, 128):
+            pos = torch.arange(s, device="cuda")
+            keys = torch.minimum(pos + 1, torch.full_like(pos, window)) \
+                if window else pos + 1
+            flops = 4 * hd * b * h * int(keys.sum())
+            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            mask = (pos[:, None] >= pos[None, :]) & (
+                (pos[:, None] - pos[None, :]) < (window or s))
+
+            def lib(q=q, k=k, v=v, mask=mask, window=window):
+                if window:
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True)
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+
+            tol = FLASH_F32_TOL if key == "float32" else LM_TOL[key]
+            e = float_entry(
+                torch, "flash_attention",
+                (fa.flash_attention(q, k, v, window=window),),
+                (ref.flash_attention(q, k, v, window=window),),
+                lambda: fa.flash_attention(q, k, v, window=window),
+                lambda: ref.flash_attention(q, k, v, window=window), tol,
+                nbytes, flops, key, lib)
+            e["window"] = window
+            out[f"flash_{key}_window{window}"] = e
+            if key == "bfloat16" and not window:
+                entries["flash_attention"] = e
+        del q, k, v
+        torch.cuda.empty_cache()
+    emit(out)
+    bad = {k: v["mismatches"] for k, v in out.items()
+           if isinstance(v, dict) and v["mismatches"]}
+    if bad:
+        raise AssertionError(f"lm_kernels: kernels outside tolerance: {bad}")
+    return entries
+
+
+def lm_requests(np, cfg, n, seed):
+    """``n`` prompts of random tokens and per-request generation caps in
+    [1, gen_len]."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(1, cfg.vocab_size, (n, LM_ENGINE["prompt_len"]))
+    caps = rng.integers(1, LM_ENGINE["gen_len"] + 1, n)
+    return prompts.astype(np.int32), caps.astype(np.int32)
+
+
+def lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts, caps,
+                 on_step=None):
+    """Inject every request (a wave of one per queue at a time), then run
+    engine steps until all have completed. ``on_step(step, state)`` may
+    return a replacement state. Returns (state, host seconds per step)."""
+    state = eng.lm_make_paged(ecfg, cfg, ctx, "cuda")
+    q = ecfg.num_queues
+    qids = torch.arange(q, dtype=torch.int32)
+    for lo in range(0, len(prompts), q):
+        state = eng.lm_inject(state, qids[: len(prompts[lo: lo + q])],
+                              prompts[lo: lo + q], gen_caps=caps[lo: lo + q])
+    times = []
+    for step in range(len(prompts) * ecfg.gen_len):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = eng.lm_engine_step(state, ecfg, cfg, ctx, params)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if on_step is not None:
+            state = on_step(step, state) or state
+        if int(state.completed) == len(prompts):
+            return state, times
+    raise AssertionError(f"lm: {int(state.completed)} of {len(prompts)} "
+                         "requests completed")
+
+
+def lm_responses(np, rb, state, caps, nq):
+    """The response rings as (queue, position) -> tokens, after checking
+    every response: its count is one of its queue's caps, its tokens lie
+    in the vocab, and its padding is zero."""
+    avail = rb.available(state.resp).cpu().numpy()
+    ents = state.resp.entries.cpu().numpy()
+    out = {}
+    for qi in range(nq):
+        want = sorted(caps[qi::nq].tolist())
+        got = []
+        for j in range(int(avail[qi])):
+            ent = ents[qi, (int(state.resp.head[qi]) + j) % ents.shape[1]]
+            n = int(ent[0])
+            if ent[1 + n:].any():
+                raise AssertionError("lm: response padding is not zero")
+            out[(qi, j)] = ent[1: 1 + n]
+            got.append(n)
+        if sorted(got) != want:
+            raise AssertionError(f"lm: queue {qi} counts {sorted(got)} != "
+                                 f"caps {want}")
+    return out
+
+
+def lm_setup(torch, cfg_mod, model, ctx, **kw):
+    cfg = cfg_mod.get_config(LM_ARCH).replace(use_pallas_flash=True, **kw)
+    t0 = time.perf_counter()
+    params = model.init_params(SEED + 30, cfg, ctx, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    return cfg, params, init_s, nbytes
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def phase_lm_serve_f32(torch, np, eng, rb, cfg_mod, model, pa, fa, ctx, smi):
+    """Full width, 4 layers, f32 (TF32 off): the kernel engine and the
+    plain engine give equal token streams and pools within 1e-5 of each
+    layer's scale, other state equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params, _, _ = lm_setup(torch, cfg_mod, model, ctx,
+                                 num_layers=LM_F32_LAYERS, dtype="float32")
+    prompts, caps = lm_requests(np, cfg, LM_F32_REQUESTS, SEED + 31)
+    runs = {}
+    for backend in ("auto", "ref"):
+        ecfg = eng.LMEngineConfig(**LM_ENGINE, kernel_backend=backend)
+        pa.reset_launches()
+        fa.reset_launches()
+        state, times = lm_serve_run(torch, eng, cfg, ctx, params, ecfg,
+                                    prompts, caps)
+        runs[backend] = (state, times, {**pa.launches, **fa.launches})
+    (a, t_k, launches), (b, t_p, plain) = runs["auto"], runs["ref"]
+    ra = lm_responses(np, rb, a, caps, LM_ENGINE["num_queues"])
+    rp = lm_responses(np, rb, b, caps, LM_ENGINE["num_queues"])
+    streams_equal = ra.keys() == rp.keys() and all(
+        np.array_equal(ra[k], rp[k]) for k in ra)
+    pools = {}
+    for f in ("k_pages", "v_pages"):
+        x, y = getattr(a.decode, f), getattr(b.decode, f)
+        pools[f] = [{"max_abs_diff": float((x[i] - y[i]).abs().max()),
+                     "max_abs": float(y[i].abs().max()),
+                     "outside_allclose_1e-5": int((~torch.isclose(
+                         x[i], y[i], rtol=1e-5, atol=1e-5)).sum())}
+                    for i in range(x.shape[0])]
+    pools_ok = all(r["max_abs_diff"] <= POOL_REL_TOL * r["max_abs"]
+                   for v in pools.values() for r in v)
+    meta_equal = all(torch.equal(getattr(a.decode, f), getattr(b.decode, f))
+                     for f in ("page_table", "lengths", "free_stack",
+                               "free_top", "residency"))
+    out = {"phase": "lm_serve_f32", "nvidia_smi": smi, "arch": LM_ARCH,
+           "layers": LM_F32_LAYERS, "dtype": "float32",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "requests": LM_F32_REQUESTS,
+           "generated_tokens": int(sum(len(v) for v in ra.values())),
+           "steps": len(t_k), "streams_equal": streams_equal,
+           "pools_within_tolerance": pools_ok, "pool_tolerance":
+           "max|diff| <= 1e-5 x max|value| per layer",
+           "pool_meta_equal": meta_equal, "pools": pools,
+           "launches": launches,
+           "kernels_step_us_median": statistics.median(t_k) * 1e6,
+           "plain_step_us_median": statistics.median(t_p) * 1e6}
+    emit(out)
+    if not (streams_equal and pools_ok and meta_equal) or any(plain.values()):
+        raise AssertionError("lm_serve_f32: the kernel and plain engines "
+                             f"differ (streams {streams_equal}, pools "
+                             f"{pools_ok}, meta {meta_equal}, plain "
+                             f"launches {plain})")
+    if not all(launches.values()):
+        raise AssertionError(f"lm_serve_f32: launches {launches}")
+    del params, a, b, runs
+    torch.cuda.empty_cache()
+
+
+def lm_teacher_forced(torch, model, pk, params, cfg, ctx, pcfg, snap):
+    """At each of LM_TF_STEPS decode steps, the kernel path and the plain
+    path decode the same tokens from clones of the same pool; the kernel
+    path's tokens feed the next step. A row is decided when the plain
+    logits' top-2 margin exceeds twice that row's largest |Δlogit|; argmax
+    must agree on every decided row, and enough rows must be decided."""
+    kv, toks, active = snap
+    v = cfg.vocab_size
+    seen = decided = agree = agree_all = 0
+    max_d, stds, ratios = 0.0, [], []
+    for _ in range(LM_TF_STEPS):
+        kv_ref = pk.clone(kv)
+        kv, lk, ok = model.paged_decode_step(params, toks, kv, pcfg, cfg,
+                                             ctx, active=active,
+                                             kernel_backend="cuda")
+        _, lp, _ = model.paged_decode_step(params, toks, kv_ref, pcfg, cfg,
+                                           ctx, active=active,
+                                           kernel_backend="ref")
+        del kv_ref
+        rows = active & ok
+        a, b = lk[rows, :v], lp[rows, :v]
+        d = (a - b).abs().amax(dim=-1)
+        top2 = b.topk(2, dim=-1).values
+        dec = (top2[:, 0] - top2[:, 1]) > 2 * d
+        eq = a.argmax(dim=-1) == b.argmax(dim=-1)
+        seen += int(rows.sum())
+        decided += int(dec.sum())
+        agree += int((eq & dec).sum())
+        agree_all += int(eq.sum())
+        max_d = max(max_d, float(d.max()))
+        std = b.std(dim=-1)
+        stds.append(float(std.mean()))
+        ratios.append(float((d / std).max()))
+        toks = torch.where(rows, lk.argmax(dim=-1).to(torch.int32), toks)
+        active = rows
+    out = {"steps": LM_TF_STEPS, "rows": seen, "rows_decided": decided,
+           "decided_share": decided / max(seen, 1),
+           "argmax_equal_where_decided": agree,
+           "argmax_equal_all": agree_all, "max_logit_diff": max_d,
+           "logit_std_mean": sum(stds) / len(stds),
+           "max_logit_diff_over_std": max(ratios),
+           "required": {"share": LM_DECIDED_SHARE, "rows": LM_DECIDED_MIN}}
+    return out, kv
+
+
+def clone_tree(torch, x):
+    """A deep copy of a state of nested NamedTuples of tensors."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return type(x)(*(clone_tree(torch, y) for y in x))
+    return x
+
+
+def lm_profile(torch, eng, pa, fa, ecfg, cfg, ctx, params, state):
+    """LM_PROFILE_STEPS engine steps from ``state`` (a copy: the serve
+    run goes on from its own) under torch.profiler: device µs and device
+    launches per step and the costliest kernels. The launch counts are
+    left as they were: these steps are not the main path's."""
+    counts = ({**pa.launches}, {**fa.launches})
+    box = [state]
+
+    def run():
+        box[0] = eng.lm_engine_step(box[0], ecfg, cfg, ctx, params)
+
+    total, per = device_us(torch, run, reps=LM_PROFILE_STEPS)
+    pa.launches.update(counts[0])
+    fa.launches.update(counts[1])
+    top = sorted(per.items(), key=lambda kv_: -kv_[1][0])[:8]
+    return {"first_step": LM_PROFILE_STEP + 1, "steps": LM_PROFILE_STEPS,
+            "device_us_per_step": total,
+            "device_launches_per_step": sum(n for _, n in per.values()),
+            "top_kernels_us_per_step": {k[:90]: us for k, (us, _) in top}}
+
+
+def lm_walk_check(torch, pa, ref, kv, seed):
+    """Every layer's page slice of a live pool through the stats kernel
+    and its plain version on the same pre-scaled q: the normalised
+    outputs within the bf16 tolerance."""
+    b = kv.lengths.shape[0]
+    kvh, hd = kv.k_pages.shape[3], kv.k_pages.shape[4]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, kvh, 5, hd), generator=gen, device="cuda") * hd ** -0.5
+    worst = 0.0
+    for i in range(kv.k_pages.shape[0]):
+        args = (q, kv.k_pages[i], kv.v_pages[i], kv.page_table, kv.lengths)
+        acc, _, l = pa.paged_attention_stats(*args)
+        acc_p, _, l_p = ref.paged_attention_stats(*args)
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        o_p = acc_p / torch.clamp(l_p, min=1e-30)[..., None]
+        worst = max(worst, float((o - o_p).abs().max()))
+    if worst > LM_TOL["bfloat16"]:
+        raise AssertionError(f"lm walk check: {worst} > tolerance")
+    return {"walk_layers_checked": kv.k_pages.shape[0],
+            "walk_tolerance": LM_TOL["bfloat16"], "walk_max_abs_diff": worst}
+
+
+def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
+                   smi):
+    """All 48 layers in bf16 with the flash prefill, 96 requests through
+    the kernel engine (the main path: its launch counts), then the plain
+    engine for free-running agreement (reported, not asserted), the
+    teacher-forced check from a snapshot of the kernel run's pool, and the
+    per-layer walk check. Returns the kernel run's launch counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx)
+    prompts, caps = lm_requests(np, cfg, LM_REQUESTS, SEED + 32)
+    ecfg = eng.LMEngineConfig(**LM_ENGINE, kernel_backend="auto")
+    pcfg = eng.lm_paged_kv_config(ecfg, cfg, ctx)
+    snap, prof, flash_seen = {}, {}, []
+
+    def on_step(step, state):
+        flash_seen.append(sum(fa.launches.values()))
+        if step == LM_SNAPSHOT_STEP:
+            kv = state.decode
+            active = state.slot_active & (state.slot_done < state.slot_cap)
+            snap["v"] = (pk.clone(kv), state.slot_last.clone(), active)
+        if step == LM_PROFILE_STEP:
+            prof.update(lm_profile(torch, eng, pa, fa, ecfg, cfg, ctx, params,
+                                   clone_tree(torch, state)))
+        return None
+
+    pa.reset_launches()
+    fa.reset_launches()
+    state, t_k = lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts,
+                              caps, on_step)
+    launches = {**pa.launches, **fa.launches}
+    peak = torch.cuda.max_memory_allocated()
+    resp_k = lm_responses(np, rb, state, caps, ecfg.num_queues)
+    steps = len(t_k)
+    del state
+    torch.cuda.empty_cache()
+
+    plain_cfg = ecfg._replace(kernel_backend="ref")
+    pa.reset_launches()
+    fa.reset_launches()
+    state, t_p = lm_serve_run(torch, eng, cfg, ctx, params, plain_cfg,
+                              prompts, caps)
+    if any(pa.launches.values()) or any(fa.launches.values()):
+        raise AssertionError("lm_serve: the plain engine launched kernels")
+    resp_p = lm_responses(np, rb, state, caps, ecfg.num_queues)
+    del state
+    torch.cuda.empty_cache()
+    same = sum(int((resp_k[k] == resp_p[k]).sum()) for k in resp_k)
+    total_tokens = sum(len(v) for v in resp_k.values())
+
+    tf, kv = lm_teacher_forced(torch, model, pk, params, cfg, ctx, pcfg,
+                               snap.pop("v"))
+    tf.update(lm_walk_check(torch, pa, ref, kv, SEED + 33))
+    del kv
+    torch.cuda.empty_cache()
+    step_us = statistics.median(t_k) * 1e6
+    # the profiled steps on the clone are the main run's next ones: the
+    # same work, timed there without the profiler
+    win = t_k[LM_PROFILE_STEP + 1: LM_PROFILE_STEP + 1 + LM_PROFILE_STEPS]
+    prof["wall_us_per_step"] = sum(win) / len(win) * 1e6
+    prof["idle_share"] = (1 - prof["device_us_per_step"]
+                          / prof["wall_us_per_step"])
+    # admission steps: those that ran the flash prefill
+    adm = [n > m for n, m in zip(flash_seen, [0] + flash_seen[:-1])]
+    win_adm = adm[LM_PROFILE_STEP + 1: LM_PROFILE_STEP + 1 + LM_PROFILE_STEPS]
+    prof["admission_steps"] = sum(win_adm)
+    t_dec = [t for t, a in zip(t_k, adm) if not a]
+    t_adm = [t for t, a in zip(t_k, adm) if a]
+    out = {"phase": "lm_serve", "nvidia_smi": smi, "arch": LM_ARCH,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "use_pallas_flash": cfg.use_pallas_flash,
+           "params_gb": pbytes / 1e9, "init_s": init_s,
+           "pool_gb": 2 * pcfg.layers * (pcfg.num_pages + 1) * pcfg.page_size
+           * pcfg.kv_heads * pcfg.head_dim * 2 / 1e9,
+           "peak_gb": peak / 1e9, "engine": LM_ENGINE,
+           "requests": LM_REQUESTS, "generated_tokens": total_tokens,
+           "steps": steps, "admission_steps": len(t_adm),
+           "token_agreement_auto_vs_ref": same / max(total_tokens, 1),
+           "teacher_forced": tf, "launches": launches,
+           "launches_per_step": {k: n / steps for k, n in launches.items()},
+           # both engines: tokens over their summed engine-step times
+           "kernels": {"step_us_median": step_us,
+                       "step_us_p90": sorted(t_k)[int(0.9 * len(t_k))] * 1e6,
+                       "decode_step_us_median":
+                       statistics.median(t_dec) * 1e6,
+                       "admission_step_us_median":
+                       statistics.median(t_adm) * 1e6,
+                       "step_s_sum": sum(t_k),
+                       "tokens_per_s": total_tokens / sum(t_k)},
+           "plain": {"step_us_median": statistics.median(t_p) * 1e6,
+                     "step_s_sum": sum(t_p),
+                     "tokens_per_s": total_tokens / sum(t_p)},
+           "profile": prof}
+    emit(out)
+    need = max(LM_DECIDED_SHARE * tf["rows"], LM_DECIDED_MIN)
+    if tf["rows_decided"] < need:
+        raise AssertionError(f"lm_serve: {tf['rows_decided']} of "
+                             f"{tf['rows']} teacher-forced rows decided, "
+                             f"fewer than {need}")
+    if tf["argmax_equal_where_decided"] != tf["rows_decided"]:
+        raise AssertionError("lm_serve: argmax differs on a decided row")
+    if not all(launches.values()):
+        raise AssertionError(f"lm_serve: kernels not launched: {launches}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1084,16 +1604,23 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch import configs as lm_configs
     from repro_torch.core import dlrm
     from repro_torch.core import engine as eng
     from repro_torch.core import kvstore as kv
+    from repro_torch.core import ringbuf as rb
     from repro_torch.core import transaction as tx
     from repro_torch.core import tx_app
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_reduce as er
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.kernels import tx_commit as tc
+    from repro_torch.models import model
+    from repro_torch.parallel.sharding import local_context
+    from repro_torch.serving import kv_cache as pk
 
     torch.manual_seed(SEED)
     smi = phase_device(torch, _build)
@@ -1139,6 +1666,18 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_merci(torch, np, dlrm)
+    torch.cuda.empty_cache()
+
+    # LM serving: the kernels at the serve shapes, then the engine
+    ctx = local_context()
+    lm_entries = phase_lm_kernels(torch, np, F, pa, fa, ref, smi)
+    phase_lm_serve_f32(torch, np, eng, rb, lm_configs, model, pa, fa, ctx,
+                       smi)
+    launches = phase_lm_serve(torch, np, eng, rb, lm_configs, model, pk, pa,
+                              fa, ref, ctx, smi)
+    for name, e in lm_entries.items():
+        e["launches"] = launches[name]
+    entries.update(lm_entries)
 
     dead = [k for k, e in entries.items() if not e["launches"]]
     if dead or len(entries) != len(KERNELS):

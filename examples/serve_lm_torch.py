@@ -1,0 +1,39 @@
+"""LM serving through the PyTorch/CUDA port of the ORCA engine: continuous
+batching, ring-buffer admission, cpoll notification. Clients inject
+prompts, the engine prefills into free slots and decodes every active
+slot each tick; with --paged, decode walks the shared KV page pool
+through the CUDA paged-attention kernel.
+
+    PYTHONPATH=src python examples/serve_lm_torch.py --paged     # one GPU
+    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
+"""
+import sys
+
+sys.path.insert(0, __file__.rsplit("/", 2)[0] + "/src")
+
+import argparse
+
+from repro_torch.launch import serve as serve_mod
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--paged", action="store_true",
+                    help="decode through the shared KV page pool")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "cuda", "ref"))
+    args = ap.parse_args()
+    serve_mod.main([
+        "--arch", args.arch,
+        "--requests", str(args.requests),
+        "--prompt-len", "12", "--gen-len", "8",
+        "--device", args.device,
+        "--backend", args.backend,
+    ] + (["--paged"] if args.paged else []))
+
+
+if __name__ == "__main__":
+    main()

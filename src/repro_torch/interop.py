@@ -20,6 +20,8 @@ from repro_torch.core import kvstore as kv
 from repro_torch.core import ringbuf as rb
 from repro_torch.core import scheduler as sched
 from repro_torch.core import transaction as tx
+from repro_torch.models import model as lm
+from repro_torch.serving import kv_cache as pk
 
 
 def to_numpy(state):
@@ -91,4 +93,40 @@ def engine_state_from_numpy(d, device,
         app=app_from_numpy(d["app"], device),
         **{f: _tensor(d[f], device)
            for f in ("steps", "served", "timed_out", "shed")},
+    )
+
+
+def lm_params_from_numpy(d, device) -> dict:
+    """LM params (the JAX package's nested tree: ``embed``, L-stacked
+    ``layers``, ``final_norm``[, ``lm_head``]) with every array's dtype
+    kept, bf16 included."""
+    if isinstance(d, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in d.items()}
+    return _tensor(d, device)
+
+
+def paged_kv_state_from_numpy(d, device) -> pk.PagedKVState:
+    return _named(pk.PagedKVState, d, device)
+
+
+def decode_state_from_numpy(d, device) -> lm.DecodeState:
+    """A dense ``models.DecodeState`` (L-stacked ring caches)."""
+    return lm.DecodeState(layers=lm_params_from_numpy(d["layers"], device),
+                          pos=_tensor(d["pos"], device))
+
+
+def lm_engine_state_from_numpy(d, device) -> eng.LMEngineState:
+    """An ``LMEngineState`` from its nested dict; the decode side is a
+    ``PagedKVState`` when it has page fields, else a ``DecodeState``."""
+    dec = d["decode"]
+    decode = (paged_kv_state_from_numpy(dec, device) if "k_pages" in dec
+              else decode_state_from_numpy(dec, device))
+    return eng.LMEngineState(
+        req=_named(rb.RingState, d["req"], device),
+        resp=_named(rb.RingState, d["resp"], device),
+        cpoll=_named(cp.CpollState, d["cpoll"], device),
+        sched=_named(sched.SchedState, d["sched"], device),
+        decode=decode,
+        **{f: _tensor(d[f], device) for f in eng.LMEngineState._fields
+           if f not in ("req", "resp", "cpoll", "sched", "decode")},
     )

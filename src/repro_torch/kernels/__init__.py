@@ -5,5 +5,10 @@ hash_probe — the KVS walk: probe, fetch, cache_probe, commit_buckets,
              write_rows
 tx_commit — the TX commit: commit (one replica), commit_chain
 embedding_reduce — the DLRM embedding reduction
+paged_attention — LM decode: the paged attention stats walk
+flash_attention — LM prefill: causal flash attention
 """
-from repro_torch.kernels import embedding_reduce, hash_probe, ops, ref, tx_commit
+from repro_torch.kernels import (
+    embedding_reduce, flash_attention, hash_probe, ops, paged_attention, ref,
+    tx_commit,
+)

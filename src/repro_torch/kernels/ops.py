@@ -9,8 +9,12 @@ launch failure raises, it never falls back.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import embedding_reduce as _er
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hash_probe as _hp
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tx_commit as _tc
 
@@ -103,3 +107,34 @@ def embedding_reduce(table, idx, seg_ids, num_segments: int, *,
     if resolve_backend(backend, idx.device):
         return _ref.embedding_reduce(table, idx, seg_ids, num_segments)
     return _er.embedding_reduce(table, idx, seg_ids, num_segments)
+
+
+def paged_attention_stats(q, k_pages, v_pages, page_table, lengths, *,
+                          backend="auto"):
+    """Online-softmax stats (acc, m, l), f32, of pre-scaled q (B, KVH, G,
+    hd) over the first ``lengths`` tokens of each sequence in the paged
+    pool (NP, PS, KVH, hd); -1 table entries resolve to the last page, the
+    zero sentinel."""
+    if resolve_backend(backend, q.device):
+        return _ref.paged_attention_stats(q, k_pages, v_pages, page_table,
+                                          lengths)
+    return _pa.paged_attention_stats(q, k_pages, v_pages, page_table,
+                                     lengths)
+
+
+def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
+                    backend="auto"):
+    """Normalised paged decode attention: the stats and the final divide.
+    Returns (B, KVH, G, hd) f32."""
+    acc, _, l = paged_attention_stats(q, k_pages, v_pages, page_table,
+                                      lengths, backend=backend)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def flash_attention(q, k, v, *, window: int = 0, backend="auto"):
+    """Causal (optionally windowed) GQA attention, q (B, H, S, hd) and k/v
+    (B, KVH, S, hd) -> (B, H, S, hd) in q's dtype. The CUDA kernel picks
+    its own tiles and takes any S."""
+    if resolve_backend(backend, q.device):
+        return _ref.flash_attention(q, k, v, window=window)
+    return _fa.flash_attention(q, k, v, window=window)

@@ -195,3 +195,59 @@ def dlrm_embedding_reduce(tables, idx):
     for j in range(1, g.shape[2]):
         out = out + g[:, :, j]
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM serving: paged decode attention and causal prefill attention
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def paged_attention_stats(q, k_pages, v_pages, page_table, lengths):
+    """Online-softmax stats over the paged pool: (acc = Σ exp(s - m) v,
+    m = row max, l = Σ exp(s - m)), all f32.
+
+    q: (B, KVH, G, hd) f32, pre-scaled; pages: (NP, PS, KVH, hd) f32 or
+    bf16; page_table: (B, MaxP) int32 whose entries < 0 (unmapped) resolve
+    to the last physical page, the pool's zero sentinel; lengths: (B,).
+    Only the first ``lengths`` positions count. A zero-length sequence
+    yields (0, NEG_INF, 0): the empty softmax, safe to LSE-merge."""
+    b, kvh, g, hd = q.shape
+    np_, ps = k_pages.shape[0], k_pages.shape[1]
+    maxp = page_table.shape[1]
+    pt = torch.where(page_table < 0, np_ - 1,
+                     torch.clamp(page_table, 0, np_ - 1)).long()
+    kk = k_pages[pt].reshape(b, maxp * ps, kvh, hd)
+    vv = v_pages[pt].reshape(b, maxp * ps, kvh, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", q.float(), kk.float())
+    pos = torch.arange(maxp * ps, device=q.device)[None, :]
+    valid = (pos < lengths[:, None])[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    # exp through the mask: an all-masked row has m == NEG_INF, where
+    # exp(s - m) would be 1 per position
+    pexp = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    l = pexp.sum(dim=-1)
+    acc = torch.einsum("bkgs,bskh->bkgh", pexp, vv.float())
+    return acc, m, l
+
+
+def flash_attention(q, k, v, *, window: int = 0):
+    """Causal (optionally windowed) attention with GQA, softmax over the
+    whole row in f32. q: (B, H, S, hd); k, v: (B, KVH, S, hd); query head
+    h reads kv head h // (H // KVH). Returns (B, H, S, hd) in q's dtype."""
+    b, h, s, hd = q.shape
+    kvh = k.shape[1]
+    g = h // kvh
+    qf = q.float().reshape(b, kvh, g, s, hd) * (hd ** -0.5)
+    sc = torch.einsum("bkgqh,bksh->bkgqs", qf, k.float())
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = qpos >= kpos
+    if window:
+        mask &= (qpos - kpos) < window
+    sc = torch.where(mask[None, None, None], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgqs,bksh->bkgqh", p, v.float())
+    return out.reshape(b, h, s, hd).to(q.dtype)

@@ -1,0 +1,182 @@
+"""Shared layers: norms, MLPs, rotary embeddings, token/codebook embeddings.
+
+Functional, as in the JAX package: ``*_init(gen, ...) -> params`` and
+``*_apply(params, x, ...) -> y``. Parameters are plain dicts of tensors.
+Matmuls return f32 whatever the storage dtype, as JAX's
+``preferred_element_type=f32`` does: a bf16 product rounded to bf16 would
+change every later layer.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` string."""
+    return {"bfloat16": torch.bfloat16, "float32": F32,
+            "float16": torch.float16}[name]
+
+
+def normal(gen, shape, device) -> torch.Tensor:
+    """Standard normal f32 draws from ``gen`` (on the generator's device)."""
+    return torch.randn(shape, generator=gen, dtype=F32, device=device)
+
+
+def dense_init(gen, in_dim: int, out_dim: int, dtype, device,
+               scale: float = 1.0):
+    std = scale / (in_dim ** 0.5)
+    return (normal(gen, (in_dim, out_dim), device) * std).to(dtype)
+
+
+def matmul(x, w):
+    """``x (..., i) @ w (i, o)`` returned in f32."""
+    if x.dtype == F32 and w.dtype == F32:
+        return x @ w
+    if (x.is_cuda and x.dtype == w.dtype
+            and x.dtype in (torch.bfloat16, torch.float16)):
+        lead = x.shape[:-1]
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=F32).reshape(*lead, w.shape[-1])
+    return x.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLP (swiglu / gelu / squared-relu)
+# ---------------------------------------------------------------------------
+
+def act_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":  # jax.nn.gelu's default is the tanh approximation
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(name)
+
+
+def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = dtype_of(cfg.dtype)
+    return {
+        "w_gate": dense_init(gen, d, f, dt, device),
+        "w_in": dense_init(gen, d, f, dt, device),
+        "w_out": dense_init(gen, f, d, dt, device),
+    }
+
+
+def mlp_apply(params, x, act: str = "silu"):
+    dt = x.dtype
+    g = matmul(x, params["w_gate"])
+    h = matmul(x, params["w_in"])
+    y = act_fn(act)(g) * h
+    return matmul(y.to(dt), params["w_out"]).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (RoPE and qwen2-vl M-RoPE), split-halves convention
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=F32, device=device)
+                            / half))
+
+
+def _rotate(x, ang):
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (..., S) int32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Temporal/height/width frequency split (fractions 1/4, 3/8, 3/8)."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return t, h, half - t - h
+
+
+def apply_mrope(x, positions3, theta: float):
+    """qwen2-vl M-RoPE. positions3: (3, ..., S) — temporal, h, w."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = rope_freqs(hd, theta, x.device)
+    t, h, w = mrope_sections(hd)
+    sec = torch.cat([torch.full((n,), i, dtype=torch.int64, device=x.device)
+                     for i, n in enumerate((t, h, w))])
+    pos = torch.movedim(positions3, 0, -1)  # (..., S, 3)
+    pos = torch.gather(pos, -1, sec.expand(*pos.shape[:-1], half))
+    return _rotate(x, pos.float() * freqs)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings and the LM head
+# ---------------------------------------------------------------------------
+
+def embed_init(gen, cfg: ModelConfig, device):
+    v, d = cfg.padded_vocab, cfg.d_model
+    shape = (cfg.num_codebooks, v, d) if cfg.num_codebooks else (v, d)
+    return {"tok": (normal(gen, shape, device) * 0.02).to(
+        dtype_of(cfg.dtype))}
+
+
+def embed_apply(params, tokens, cfg: ModelConfig):
+    """tokens: (B, S) int32 or (B, S, K) for codebook archs -> (B, S, D)."""
+    tok = params["tok"]
+    if cfg.num_codebooks:
+        return sum(tok[k][tokens[..., k].long()]
+                   for k in range(cfg.num_codebooks))
+    return tok[tokens.long()]
+
+
+def lm_head_init(gen, cfg: ModelConfig, device):
+    v, d = cfg.padded_vocab, cfg.d_model
+    shape = (cfg.num_codebooks, d, v) if cfg.num_codebooks else (d, v)
+    return {"w": (normal(gen, shape, device) / (d ** 0.5)).to(
+        dtype_of(cfg.dtype))}
+
+
+def lm_head_apply(params, x, cfg: ModelConfig, embed_params=None):
+    """x: (B, S, D) -> f32 logits over the padded vocab with dead columns
+    set to -1e30; shape (B, S, Vp) or (B, S, K, Vp)."""
+    if cfg.tie_embeddings:
+        logits = matmul(x, embed_params["tok"].T)
+    elif cfg.num_codebooks:
+        logits = torch.stack([matmul(x, params["w"][k])
+                              for k in range(cfg.num_codebooks)], dim=2)
+    else:
+        logits = matmul(x, params["w"])
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits

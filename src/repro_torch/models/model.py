@@ -1,0 +1,181 @@
+"""Top-level LM: init, prefill and decode (dense per-slot ring caches, or
+the shared page pool), dense family."""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (
+    dtype_of, embed_apply, embed_init, lm_head_apply, lm_head_init, rmsnorm,
+    rmsnorm_init,
+)
+from repro_torch.parallel.sharding import ParallelContext, shard
+
+I32 = torch.int32
+
+
+class DecodeState(NamedTuple):
+    layers: Any  # L-stacked per-layer ring states {"k", "v", "pos"}
+    pos: torch.Tensor  # (B,) tokens already in context (next write pos)
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_params(seed: int, cfg: ModelConfig, ctx: ParallelContext,
+                device="cuda"):
+    """Random parameters from ``seed`` (a ``torch.Generator`` on
+    ``device``), with the JAX package's shapes, layout and distributions:
+    ``{"embed": {"tok"}, "layers": {L-stacked block params},
+    "final_norm": {"scale"}[, "lm_head": {"w"}]}``. The draws differ from
+    JAX's; tests carry JAX's params across with
+    ``interop.lm_params_from_numpy``."""
+    tf.check_family(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    plan = tf.plan_for(cfg, ctx)
+    params = {
+        "embed": embed_init(gen, cfg, device),
+        "layers": tf.stack_init(gen, cfg, plan, device),
+        "final_norm": rmsnorm_init(cfg.d_model, dtype_of(cfg.dtype), device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = lm_head_init(gen, cfg, device)
+    return params
+
+
+def _positions_for(tokens):
+    b, s = tokens.shape
+    return torch.arange(s, dtype=I32, device=tokens.device)[None].expand(b, s)
+
+
+def _head(params, h, cfg):
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    return lm_head_apply(params.get("lm_head"), h, cfg,
+                         embed_params=params["embed"])
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + dense decode
+# ---------------------------------------------------------------------------
+
+def make_decode_state(cfg: ModelConfig, ctx: ParallelContext, batch: int,
+                      cache_len: int, device="cuda") -> DecodeState:
+    plan = tf.plan_for(cfg, ctx)
+    layers = tf.stack([tf.layer_state_zeros(cfg, plan, batch, cache_len,
+                                            device)
+                       for _ in range(cfg.num_layers)])
+    return DecodeState(layers, torch.zeros((batch,), dtype=I32,
+                                           device=device))
+
+
+def prefill(params, tokens, state: DecodeState, cfg: ModelConfig,
+            ctx: ParallelContext, *, chunk: int = 512, backend="auto"):
+    """Fill the decode state from a prompt. Returns (new_state,
+    last_logits (B, V) f32)."""
+    plan = tf.plan_for(cfg, ctx)
+    h = shard(embed_apply(params["embed"], tokens, cfg), ctx)
+    h, new_layers = tf.stack_apply(
+        params["layers"], h, cfg, plan, ctx, _positions_for(tokens),
+        states=state.layers, chunk=chunk, backend=backend)
+    logits = _head(params, h[:, -1:], cfg)
+    return DecodeState(new_layers, state.pos + tokens.shape[1]), logits[:, 0]
+
+
+def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
+                ctx: ParallelContext):
+    """One token per sequence. tokens: (B,). Returns (new_state,
+    logits (B, V))."""
+    plan = tf.plan_for(cfg, ctx)
+    h = shard(embed_apply(params["embed"], tokens[:, None], cfg), ctx)
+    cur = state.pos
+    h, new_layers = tf.stack_apply(params["layers"], h, cfg, plan, ctx,
+                                   cur[:, None].to(I32), states=state.layers)
+    return DecodeState(new_layers, cur + 1), _head(params, h, cfg)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Serving: paged decode (the shared page pool)
+# ---------------------------------------------------------------------------
+
+def check_paged_support(cfg: ModelConfig) -> None:
+    """The paged path stores pages in bshd layout and walks full causal
+    context; windowed and dot-layout caches keep the dense decode path."""
+    tf.check_family(cfg)
+    if cfg.kv_cache_layout != "bshd":
+        raise NotImplementedError("paged decode stores pages in bshd layout")
+    if cfg.sliding_window:
+        raise NotImplementedError("paged decode does not window the page walk")
+
+
+def make_paged_kv_config(cfg: ModelConfig, ctx: ParallelContext, *,
+                         num_pages: int, page_size: int,
+                         max_pages_per_seq: int):
+    """A PagedKVConfig matching this model's physical kv geometry."""
+    from repro_torch.serving.kv_cache import PagedKVConfig
+
+    check_paged_support(cfg)
+    plan = tf.plan_for(cfg, ctx)
+    return PagedKVConfig(
+        num_pages=num_pages, page_size=page_size,
+        max_pages_per_seq=max_pages_per_seq,
+        kv_heads=plan.kv_phys, head_dim=cfg.resolved_head_dim,
+        layers=cfg.num_layers,
+    )
+
+
+def paged_decode_step(params, tokens, kv, pcfg, cfg: ModelConfig,
+                      ctx: ParallelContext, *, active=None,
+                      kernel_backend: Optional[str] = "auto"):
+    """One token per active sequence against the shared page pool.
+
+    tokens: (B,); kv: ``kv_cache.PagedKVState`` over the slots; active:
+    (B,) bool (inactive slots neither append nor advance; their logits are
+    garbage the caller masks). COLD slots are masked out of ``active``.
+    Every layer attends READ-ONLY over the stale pool (the
+    ``paged_attention_stats`` walk per ``kernel_backend``) and LSE-merges
+    the current token's fresh k/v; after the last layer ONE
+    ``append_token_batch`` commits every layer's new kv, in place. Returns
+    (kv', logits (B, V), ok (B,)): ok False where the pool was dry (the
+    slot stalls: nothing appended).
+    """
+    from repro_torch.serving import kv_cache as pk
+
+    check_paged_support(cfg)
+    plan = tf.plan_for(cfg, ctx)
+    b = tokens.shape[0]
+    if active is None:
+        active = torch.ones((b,), dtype=torch.bool, device=tokens.device)
+    active = active & (kv.residency == pk.HOT)
+    kv, ok = pk.ensure_capacity_batch(kv, pcfg, active)
+    eff = active & ok
+    cur = kv.lengths  # stale length = position of the new token
+    aux = tf.PagedAux(page_table=kv.page_table, lengths=cur,
+                      backend=kernel_backend)
+    h = shard(embed_apply(params["embed"], tokens[:, None], cfg), ctx)
+    h, new_states = tf.stack_apply(
+        params["layers"], h, cfg, plan, ctx, cur[:, None].to(I32),
+        states={"kp": kv.k_pages, "vp": kv.v_pages}, paged=aux)
+    logits = _head(params, h, cfg)
+    kv = pk.append_token_batch(kv, pcfg, new_states["k_new"],
+                               new_states["v_new"], eff)
+    return kv, logits[:, 0], ok
+
+
+def prefill_kv(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
+               chunk: int = 512, kernel_backend: Optional[str] = "auto"):
+    """Direct paged prefill: the prompt kv comes straight off the layers
+    (``stack_apply(emit_kv=True)``), never staged in a dense cache.
+    Returns (k (L, B, S, kvp, hd), v, last_logits (B, V)); the engine
+    writes k/v into the pool (``kv_cache.prefill_into_pages``)."""
+    check_paged_support(cfg)
+    plan = tf.plan_for(cfg, ctx)
+    h = shard(embed_apply(params["embed"], tokens, cfg), ctx)
+    h, kvs = tf.stack_apply(
+        params["layers"], h, cfg, plan, ctx, _positions_for(tokens),
+        chunk=chunk, emit_kv=True, backend=kernel_backend)
+    return kvs["k"], kvs["v"], _head(params, h[:, -1:], cfg)[:, 0]

@@ -1,0 +1,360 @@
+"""Decoder blocks and the layer stack, dense family.
+
+The JAX package scans one block over L-stacked parameters; here the
+stacked layout is kept (every leaf of ``params["layers"]`` has a leading
+L dimension, so parameters cross from JAX unchanged) and the scan is a
+Python loop over layer views. The other families (recurrent state,
+experts, M-RoPE and codebook front ends) are not ported yet and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (
+    dtype_of, mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
+)
+from repro_torch.parallel.sharding import HeadPlan, ParallelContext, head_plan
+
+F32 = torch.float32
+
+
+def plan_for(cfg: ModelConfig, ctx: ParallelContext) -> HeadPlan:
+    return head_plan(cfg.num_heads, cfg.num_kv_heads, max(ctx.tp, 1))
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """The port runs the dense attention family only, so far."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            "(dense decoder blocks only)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Block init
+# ---------------------------------------------------------------------------
+
+def block_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
+    check_family(cfg)
+    dt = dtype_of(cfg.dtype)
+    d = cfg.d_model
+    return {
+        "ln1": rmsnorm_init(d, dt, device),
+        "attn": attn_mod.attn_init(gen, cfg, plan, device),
+        "ln2": rmsnorm_init(d, dt, device),
+        "mlp": mlp_init(gen, cfg, device),
+    }
+
+
+def _map(fn, *trees):
+    """Apply ``fn`` leaf-wise over nested dicts of tensors."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def layer(tree, i: int):
+    """Layer ``i``'s view of an L-stacked tree."""
+    return _map(lambda t: t[i], tree)
+
+
+def stack(trees):
+    """L per-layer trees -> one L-stacked tree."""
+    return _map(lambda *ts: torch.stack(ts), *trees)
+
+
+# ---------------------------------------------------------------------------
+# Decode-time per-layer state
+# ---------------------------------------------------------------------------
+
+def layer_state_zeros(cfg: ModelConfig, plan: HeadPlan, batch: int,
+                      cache_len: int, device):
+    """Per-layer ring-cache decode state over ``cache_len`` slots (the
+    sliding window when set); ``pos`` holds the absolute position in each
+    slot (-1 = empty)."""
+    check_family(cfg)
+    dt = dtype_of(cfg.dtype)
+    hd = cfg.resolved_head_dim
+    sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+        else cache_len
+    kv = plan.kv_phys
+    if cfg.kv_cache_layout == "dot":
+        k = torch.zeros((batch, kv, hd, sc), dtype=dt, device=device)
+        v = torch.zeros((batch, kv, sc, hd), dtype=dt, device=device)
+    else:
+        k = torch.zeros((batch, sc, kv, hd), dtype=dt, device=device)
+        v = torch.zeros((batch, sc, kv, hd), dtype=dt, device=device)
+    pos = torch.full((batch, sc), -1, dtype=torch.int32, device=device)
+    return {"k": k, "v": v, "pos": pos}
+
+
+# ---------------------------------------------------------------------------
+# Attention decode against the shared page pool (serving.kv_cache)
+# ---------------------------------------------------------------------------
+
+class PagedAux(NamedTuple):
+    """The per-step paged-decode context shared by every layer: the page
+    walk is per sequence, not per layer. ``lengths`` counts only committed
+    tokens (the current token's kv is appended after the last layer, one
+    batched scatter for all layers); ``backend`` is the kernel knob
+    (auto | cuda | ref). Unmapped (-1) entries, of COLD sequences or free
+    slots, resolve to the pool's zero sentinel page inside the walk."""
+
+    page_table: Any  # (B, MaxP) int32, -1 = unmapped
+    lengths: Any  # (B,) committed tokens (excludes the current one)
+    backend: Optional[str] = "auto"
+
+
+def _paged_decode_attn_ro(params, x, cfg, plan, state, cur_pos,
+                          paged: PagedAux):
+    """x: (B,1,D); state: {"kp","vp"} (NP+1, PS, kvp, hd), one layer's
+    page slice, read only. Attends over the stale pool through the stats
+    walk and LSE-merges the current token's fresh k/v. Returns
+    (y, {"k_new", "v_new"}) with the (B, kvp, hd) new kv."""
+    q, k, v = attn_mod.qkv(params, x, cfg, plan, cur_pos[:, None])
+    k_new, v_new = k[:, 0], v[:, 0]
+    out = attn_mod.paged_decode_attention_ro(
+        q, state["kp"], state["vp"], paged.page_table, paged.lengths,
+        k_new, v_new, backend=paged.backend,
+    )
+    return attn_mod.out_proj(params, out, plan), {"k_new": k_new,
+                                                  "v_new": v_new}
+
+
+# ---------------------------------------------------------------------------
+# Attention decode against a ring cache with per-slot positions
+# ---------------------------------------------------------------------------
+
+def _qg(q, kvp, scale, cfg, cache_dtype):
+    B, _, H, hd = q.shape
+    qg = q[:, 0].reshape(B, kvp, H // kvp, hd)
+    if cfg.decode_mxu_einsum:
+        # the JAX package's bf16 dots: q rounded to the cache dtype, the
+        # products accumulated in f32
+        return (qg * scale).to(cache_dtype).float()
+    return qg.float() * scale
+
+
+def _ring_decode_attn(params, x, cfg, plan, state, cur_pos):
+    """x: (B,1,D); state k/v: (B,Sc,kvp,hd); cur_pos: (B,) position of the
+    new token. Writes the token into its ring slot, attends. Returns
+    (y, new_state)."""
+    q, k, v = attn_mod.qkv(params, x, cfg, plan, cur_pos[:, None])
+    sc = state["k"].shape[1]
+    rows = torch.arange(x.shape[0], device=x.device)
+    slot = (cur_pos % sc).long()
+    k_cache, v_cache = state["k"].clone(), state["v"].clone()
+    k_cache[rows, slot] = k[:, 0]
+    v_cache[rows, slot] = v[:, 0]
+    pos = state["pos"].clone()
+    pos[rows, slot] = cur_pos.to(pos.dtype)
+
+    B, _, H, hd = q.shape
+    kvp = k_cache.shape[2]
+    qg = _qg(q, kvp, hd ** -0.5, cfg, k_cache.dtype)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float())
+    valid = (pos >= 0) & (pos <= cur_pos[:, None])
+    if cfg.sliding_window:
+        valid &= pos > (cur_pos[:, None] - cfg.sliding_window)
+    s = torch.where(valid[:, None, None, :], s, attn_mod.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if cfg.decode_mxu_einsum:
+        p = p.to(v_cache.dtype).float()
+    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
+    out = out.reshape(B, 1, H, hd).to(x.dtype)
+    y = attn_mod.out_proj(params, out, plan)
+    return y, {"k": k_cache, "v": v_cache, "pos": pos}
+
+
+def _ring_decode_attn_ro(params, x, cfg, plan, state, cur_pos):
+    """Read-only ring-cache decode: attend over the stale cache plus the
+    current token's fresh k/v without writing the cache. Returns
+    (y, {"k_new", "v_new"}); :func:`stack_apply` writes every layer's new
+    kv with one scatter after the last layer."""
+    q, k, v = attn_mod.qkv(params, x, cfg, plan, cur_pos[:, None])
+    k_new, v_new = k[:, 0], v[:, 0]
+    dot_layout = cfg.kv_cache_layout == "dot"
+    sc = state["pos"].shape[1]
+    pos = state["pos"]  # stale: does not hold the current token
+    B, _, H, hd = q.shape
+    kvp = state["k"].shape[1] if dot_layout else state["k"].shape[2]
+    dt = state["k"].dtype
+    # the JAX path rounds q to the cache dtype and accumulates in f32
+    qg = (q[:, 0].reshape(B, kvp, H // kvp, hd) * hd ** -0.5).to(dt).float()
+    kc = state["k"].float()
+    if dot_layout:
+        s_cache = torch.einsum("bkgh,bkhs->bkgs", qg, kc)
+    else:
+        s_cache = torch.einsum("bkgh,bskh->bkgs", qg, kc)
+    valid = (pos >= 0) & (pos <= cur_pos[:, None]) \
+        & (pos > cur_pos[:, None] - sc)
+    if cfg.sliding_window:
+        valid &= pos > (cur_pos[:, None] - cfg.sliding_window)
+    vmask = valid[:, None, None, :]
+    s_cache = torch.where(vmask, s_cache, attn_mod.NEG_INF)
+    m = s_cache.amax(dim=-1)
+    # exp through the mask: an empty cache has m == NEG_INF
+    pexp = torch.where(vmask, torch.exp(s_cache - m[..., None]), 0.0)
+    l = pexp.sum(dim=-1)
+    pv = pexp.to(dt).float()
+    if dot_layout:
+        acc = torch.einsum("bkgs,bksh->bkgh", pv, state["v"].float())
+    else:
+        acc = torch.einsum("bkgs,bskh->bkgh", pv, state["v"].float())
+    s_cur = torch.einsum("bkgh,bkh->bkg", qg, k_new.to(dt).float())
+    out = attn_mod.merge_fresh_token(acc, m, l, s_cur, v_new)
+    out = out.reshape(B, 1, H, hd).to(x.dtype)
+    y = attn_mod.out_proj(params, out, plan)
+    return y, {"k_new": k_new, "v_new": v_new}
+
+
+def _ring_prefill_write(state, k, v, cfg, start_pos=0):
+    """Write prefill k/v (B,S,kvp,hd) into the ring cache (the last Sc
+    positions survive)."""
+    B, S = k.shape[0], k.shape[1]
+    sc = state["pos"].shape[1]
+    n = min(S, sc)
+    kw, vw = k[:, -n:], v[:, -n:]
+    pos = start_pos + torch.arange(S - n, S, dtype=torch.int32,
+                                   device=k.device)
+    slots = (pos % sc).long()
+    k_cache, v_cache = state["k"].clone(), state["v"].clone()
+    if cfg.kv_cache_layout == "dot":
+        k_cache[:, :, :, slots] = kw.permute(0, 2, 3, 1)
+        v_cache[:, :, slots, :] = vw.permute(0, 2, 1, 3)
+    else:
+        k_cache[:, slots] = kw
+        v_cache[:, slots] = vw
+    pos_cache = state["pos"].clone()
+    pos_cache[:, slots] = pos.expand(B, n)
+    return {"k": k_cache, "v": v_cache, "pos": pos_cache}
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------
+
+def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
+                ctx: ParallelContext, positions, state: Optional[dict] = None,
+                *, chunk: int = 512, paged: Optional[PagedAux] = None,
+                emit_kv: bool = False, backend: Optional[str] = "auto"):
+    """One decoder block. Returns (y, new_state).
+
+    The mode is inferred: ``state is None`` -> stateless forward;
+    seq == 1 with state -> decode; else prefill into the ring state. With
+    ``paged`` the decode state is a read-only page-pool slice
+    ({"kp","vp"}) walked through the page table. ``emit_kv`` (stateless
+    prefill) returns the layer's raw prompt {"k","v"} for direct landing
+    in pages. ``backend`` routes the flash prefill kernel
+    (``use_pallas_flash``): auto | cuda | ref.
+    """
+    check_family(cfg)
+    S = x.shape[1]
+    decode = state is not None and S == 1
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    new_state = dict(state) if state is not None else None
+
+    if decode:
+        cur_pos = positions[:, 0]  # positions (B, 1)
+        if paged is not None:
+            att, new_state = _paged_decode_attn_ro(
+                params["attn"], h, cfg, plan, state, cur_pos, paged)
+        elif cfg.decode_appended_kv:
+            att, new_state = _ring_decode_attn_ro(
+                params["attn"], h, cfg, plan, state, cur_pos)
+        else:
+            att, att_state = _ring_decode_attn(
+                params["attn"], h, cfg, plan, state, cur_pos)
+            new_state.update(att_state)
+    else:
+        q, k, v = attn_mod.qkv(params["attn"], h, cfg, plan, positions)
+        if cfg.use_pallas_flash and (state is not None or emit_kv) \
+                and S % min(cfg.flash_block, S) == 0:
+            # the prefill flash kernel (forward only)
+            from repro_torch.kernels import ops as kops
+
+            out = kops.flash_attention(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), window=cfg.sliding_window,
+                backend=backend,
+            ).transpose(1, 2).to(q.dtype)
+        elif state is None and not emit_kv \
+                and S <= attn_mod.TRAIN_FULL_ATTN_MAX:
+            out = attn_mod.full_attention(q, k, v, window=cfg.sliding_window)
+        else:
+            out = attn_mod.chunked_attention(
+                q, k, v, window=cfg.sliding_window, chunk=chunk)
+        att = attn_mod.out_proj(params["attn"], out, plan)
+        if new_state is not None:
+            new_state.update(_ring_prefill_write(state, k, v, cfg))
+        elif emit_kv:
+            new_state = {"k": k, "v": v}  # raw prompt kv, no staging
+
+    x = x + att
+    h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    return x + mlp_apply(params["mlp"], h2, cfg.act), new_state
+
+
+# ---------------------------------------------------------------------------
+# The layer stack
+# ---------------------------------------------------------------------------
+
+def stack_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
+    """L-stacked block parameters, drawn one layer at a time (so only one
+    layer's f32 draws are ever live) into preallocated stacked tensors."""
+    first = block_init(gen, cfg, plan, device)
+    out = _map(lambda t: torch.empty((cfg.num_layers, *t.shape),
+                                     dtype=t.dtype, device=t.device), first)
+    for i in range(cfg.num_layers):
+        lp = first if i == 0 else block_init(gen, cfg, plan, device)
+        _map(lambda dst, src: dst.copy_(src), layer(out, i), lp)
+        del lp
+    return out
+
+
+def stack_apply(layers, x, cfg: ModelConfig, plan: HeadPlan,
+                ctx: ParallelContext, positions, states=None, *,
+                chunk: int = 512, paged: Optional[PagedAux] = None,
+                emit_kv: bool = False, backend: Optional[str] = "auto"):
+    """Apply the blocks in order over the stacked layer params (and
+    states when decoding). Returns (y, new_states).
+
+    ``paged`` switches decode to the read-only page-pool path: ``states``
+    holds the L-stacked pages {"kp","vp"}, each layer reads its slice, and
+    the returned states are only each layer's new {"k_new","v_new"}
+    (L, B, kvp, hd) for the caller's one batched append. ``emit_kv``
+    (stateless prefill) returns each layer's raw prompt {"k","v"}."""
+    outs = []
+    h = x
+    for i in range(cfg.num_layers):
+        st = None if states is None else layer(states, i)
+        h, new_st = block_apply(
+            layer(layers, i), h, cfg, plan, ctx, positions, st, chunk=chunk,
+            paged=paged, emit_kv=emit_kv, backend=backend)
+        outs.append(new_st)
+    new_states = stack(outs) if outs[0] is not None else None
+    decode = states is not None and x.shape[1] == 1
+    if decode and paged is None and cfg.decode_appended_kv:
+        # read-only ring mode: write every layer's new kv with one scatter
+        cur = positions[:, 0]
+        sc = states["pos"].shape[2]
+        bidx = torch.arange(cur.shape[0], device=x.device)
+        slot = (cur % sc).long()
+        merged = {f: states[f].clone() for f in ("k", "v", "pos")}
+        if cfg.kv_cache_layout == "dot":
+            merged["k"][:, bidx, :, :, slot] = new_states["k_new"].permute(
+                1, 0, 2, 3)
+            merged["v"][:, bidx, :, slot, :] = new_states["v_new"].permute(
+                1, 0, 2, 3)
+        else:
+            merged["k"][:, bidx, slot] = new_states["k_new"]
+            merged["v"][:, bidx, slot] = new_states["v_new"]
+        merged["pos"][:, bidx, slot] = cur.to(torch.int32)
+        new_states = merged
+    return h, new_states

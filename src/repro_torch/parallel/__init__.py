@@ -1,0 +1,4 @@
+"""Parallel layout: the head plan and a single-device context."""
+from repro_torch.parallel.sharding import (
+    HeadPlan, ParallelContext, head_plan, local_context, shard,
+)

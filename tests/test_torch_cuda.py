@@ -17,7 +17,9 @@ from repro_torch.core import kvstore as kv
 from repro_torch.core import transaction as tx
 from repro_torch.core import tx_app
 from repro_torch.kernels import embedding_reduce as er
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import hash_probe as hp
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import tx_commit as tc
 
@@ -343,3 +345,137 @@ def test_engine_dlrm_kernels_equal_plain_on_the_card(dev):
         assert x.dtype == y.dtype and np.array_equal(x, y)
     assert launches["embedding_reduce"] > 0, launches
     assert not any(plain.values())
+
+
+# ------------------------------ LM serving ----------------------------------
+
+LM_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def _paged_case(rng, dev, dtype, b, kvh, g, hd, ps, maxp, lengths):
+    npages = b * maxp + 2
+    q = torch.from_numpy((rng.normal(size=(b, kvh, g, hd)) * hd ** -0.5)
+                         .astype(np.float32))
+    kp = torch.from_numpy(rng.normal(size=(npages, ps, kvh, hd))
+                          .astype(np.float32)).to(dtype)
+    vp = torch.from_numpy(rng.normal(size=(npages, ps, kvh, hd))
+                          .astype(np.float32)).to(dtype)
+    kp[-1] = 0
+    vp[-1] = 0  # the zero sentinel
+    pt = rng.permutation(npages - 1)[: b * maxp].reshape(b, maxp)
+    pt[-1, 0] = -1  # unmapped inside the length: reads the sentinel
+    pt[0, -1] = -1
+    args = (q, kp, vp, torch.from_numpy(pt.astype(np.int32)),
+            torch.as_tensor(lengths, dtype=torch.int32))
+    return args, tuple(a.to(dev) for a in args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kvh,g,hd,ps,maxp", [
+    (2, 1, 16, 4, 3), (2, 4, 16, 8, 5), (1, 2, 8, 16, 2), (8, 5, 128, 16, 40),
+])
+def test_paged_attention_stats_matches_plain_version(dev, dtype, kvh, g, hd,
+                                                     ps, maxp):
+    """(acc, m, l) against the plain version: zero length, full, ragged,
+    -1 entries, G up to 5, the serve head geometry."""
+    rng = np.random.default_rng(hd + ps)
+    full = ps * maxp
+    lengths = [0, full, full - 3, 1, 33 if full > 33 else full]
+    host, cuda = _paged_case(rng, dev, dtype, len(lengths), kvh, g, hd, ps,
+                             maxp, lengths)
+    want = ref.paged_attention_stats(*host)
+    pa.reset_launches()
+    got = pa.paged_attention_stats(*cuda)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_attention_stats"] == 1
+    tol = LM_TOL[dtype]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+    assert float(got[0][0].abs().max()) == 0.0
+    assert bool((got[1][0] == -1e30).all()) and bool((got[2][0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,window,g,hd", [
+    (64, 0, 1, 8), (64, 0, 2, 16), (128, 48, 4, 8), (32, 8, 1, 8),
+    (100, 0, 5, 128), (256, 128, 5, 128), (40, 0, 2, 256),
+    (130, 0, 2, 64), (192, 70, 1, 64), (512, 0, 5, 128),
+])
+def test_flash_attention_matches_plain_version(dev, dtype, s, window, g, hd):
+    """Causal GQA attention against the plain version: windows, ragged S
+    (not a multiple of the tiles), head dims 8 to 256, both kernel paths
+    (tensor cores for bf16 at hd 64 and 128, FMAs otherwise)."""
+    rng = np.random.default_rng(s + hd)
+    b, kvh = 2, 2
+    h = kvh * g
+    host = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dtype) for shape in ((b, h, s, hd), (b, kvh, s, hd),
+                                     (b, kvh, s, hd))]
+    want = ref.flash_attention(*host, window=window)
+    fa.reset_launches()
+    got = fa.flash_attention(*(t.to(dev) for t in host), window=window)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1 and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else LM_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_lm_wrappers_reject_bad_tensors(dev):
+    q = torch.zeros((2, 2, 2, 8), device=dev)
+    pages = torch.zeros((3, 4, 2, 8), device=dev)
+    pt = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    ln = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        pa.paged_attention_stats(q.cpu(), pages, pages, pt, ln)
+    with pytest.raises(TypeError):
+        pa.paged_attention_stats(q.to(torch.bfloat16), pages, pages, pt, ln)
+    with pytest.raises(ValueError):
+        pa.paged_attention_stats(q, pages[:, :, :1], pages, pt, ln)
+    q12 = torch.zeros((2, 2, 2, 12), device=dev)
+    p12 = torch.zeros((3, 4, 2, 12), device=dev)
+    with pytest.raises(ValueError):  # hd not a multiple of 8
+        pa.paged_attention_stats(q12, p12, p12, pt, ln)
+    x = torch.zeros((1, 4, 16, 8), device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x[:, :3], x[:, :3])
+    with pytest.raises(TypeError):
+        fa.flash_attention(x, x.to(torch.bfloat16), x)
+
+
+def test_lm_engine_kernels_equal_plain_on_the_card(dev):
+    """The paged LM engine with the kernels (auto) and with the plain
+    versions (ref) on the card, f32, flash prefill on: equal token
+    streams, pools within 1e-5, both kernels launched."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import local_context
+
+    cfg = reduced(get_config("qwen2.5-14b")).replace(
+        dtype="float32", use_pallas_flash=True, flash_block=8)
+    ctx = local_context()
+    params = init_params(0, cfg, ctx, dev)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (8, 8)).astype(np.int32))
+    out = {}
+    for backend in ("auto", "ref"):
+        ecfg = eng.LMEngineConfig(num_queues=4, capacity=8, prompt_len=8,
+                                  gen_len=6, slots=4, admit_per_step=2,
+                                  paged=True, page_size=4,
+                                  kernel_backend=backend)
+        state = eng.lm_make_paged(ecfg, cfg, ctx, dev)
+        pa.reset_launches()
+        fa.reset_launches()
+        for i in range(0, 8, 4):
+            state = eng.lm_inject(state, torch.arange(4), prompts[i:i + 4])
+            for _ in range(10):
+                state = eng.lm_engine_step(state, ecfg, cfg, ctx, params)
+        torch.cuda.synchronize()
+        out[backend] = (state, pa.launches["paged_attention_stats"],
+                        fa.launches["flash_attention"])
+    (a, pl, fl), (b, pl_ref, fl_ref) = out["auto"], out["ref"]
+    assert pl > 0 and fl > 0 and pl_ref == fl_ref == 0
+    assert int(a.completed) == int(b.completed) == 8
+    assert torch.equal(a.resp.entries, b.resp.entries)
+    torch.testing.assert_close(a.decode.k_pages, b.decode.k_pages,
+                               rtol=1e-5, atol=1e-5)

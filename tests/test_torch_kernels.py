@@ -211,6 +211,11 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.ops, repro_torch.kernels.hash_probe\n"
         "import repro_torch.kernels.tx_commit\n"
         "import repro_torch.kernels.embedding_reduce\n"
+        "import repro_torch.kernels.paged_attention\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.configs, repro_torch.parallel\n"
+        "import repro_torch.models, repro_torch.serving\n"
+        "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
