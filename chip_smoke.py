@@ -44,7 +44,10 @@ Phases, each printing one JSON line:
 11. lm_kernels  — paged_attention_stats and flash_attention against their
                   plain versions at the serve shapes (a 32-sequence pool
                   of 16-token pages, 8 prompts of 512 tokens, 40 q / 8 kv
-                  heads), bf16 and f32, flash also with window 128;
+                  heads), bf16 and f32, flash also with window 128, and
+                  the paged walk over 4 sequences of 16,384 tokens (bf16);
+                  each with its library call's device time where there is
+                  one, the paged cases with their split count;
 12. lm_serve_f32 — Qwen2.5-14B at full width cut to 4 layers, f32: the
                   kernel engine and the plain engine give equal token
                   streams and page pools within 1e-5 of each layer's scale;
@@ -64,6 +67,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -135,6 +139,10 @@ LM_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=128,
                  slots=32, admit_per_step=8, paged=True, page_size=16)
 LM_REQUESTS = 96
 LM_F32_LAYERS, LM_F32_REQUESTS = 4, 32
+# the long-context paged case: 4 sequences of 16,384 tokens on a bf16 pool
+# at the serve head geometry (268 MB), where one CTA per (sequence, kv
+# head) would be only 32 CTAs
+LM_LONG = (4, 16384)
 LM_SNAPSHOT_STEP = 24  # the engine step the teacher-forced check starts at
 LM_TF_STEPS = 40  # teacher-forced decode steps (at least 32)
 # the profiled window: a copy of the engine state after this step runs the
@@ -282,13 +290,15 @@ def kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn, nbytes, batch,
     """One kernel against its plain version on the same inputs: the
     mismatching elements of its outputs, then its time (CUDA events,
     median of 50 calls, and device time from the profiler), the plain
-    version's, the library call's if there is one, and its bound: the
-    bytes it must move over the card's memory rate."""
+    version's, the library call's if there is one (by CUDA events, and
+    its device time from the profiler, like for like with the kernel's),
+    and its bound: the bytes it must move over the card's memory rate."""
     miss = sum(mismatches(torch, a, b) for a, b in zip(outs_k, outs_p))
     err = max(max_abs_err(torch, a, b) for a, b in zip(outs_k, outs_p))
     us = time_us(torch, k_fn)
     plain_us = time_us(torch, p_fn)
     lib_us = time_us(torch, lib_fn) if lib_fn is not None else None
+    lib_dev = device_us(torch, lib_fn)[0] if lib_fn is not None else None
     k_dev, _ = device_us(torch, k_fn)
     p_dev, p_kernels = device_us(torch, p_fn)
     k_loop = loop_us(torch, k_fn)
@@ -303,6 +313,7 @@ def kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn, nbytes, batch,
         "bound_ms": bound_us / 1e3, "bound_by": "bytes",
         "library_ms": None if lib_us is None else lib_us / 1e3,
         "us": us, "plain_us": plain_us, "library_us": lib_us,
+        "library_device_us": lib_dev,
         "bound_us": bound_us, "bytes": nbytes, "batch": batch,
         "device_us": k_dev, "device_cold_us": k_cold, "loop_us": k_loop,
         "plain_device_us": p_dev,
@@ -319,7 +330,8 @@ def check_entries(entries, phase):
 
 def entry_summary(entries):
     return {k: {f: v[f] for f in ("mismatches", "max_abs_err", "us",
-                                  "plain_us", "library_us", "bound_us",
+                                  "plain_us", "library_us",
+                                  "library_device_us", "bound_us",
                                   "device_us", "device_cold_us", "loop_us",
                                   "plain_device_us")}
             for k, v in entries.items()}
@@ -327,6 +339,53 @@ def entry_summary(entries):
 
 def clone_state(st):
     return type(st)(*(t.clone() for t in st))
+
+
+PTXAS_SOURCES = ("flash_attention", "paged_attention")
+
+
+def ptxas_usage(build, names=PTXAS_SOURCES):
+    """Registers, spills and stack of every kernel in ``csrc/<name>.cu``
+    as ``nvcc -Xptxas -v`` reports them, the sources compiled together
+    into scratch files of the build directory. {kernel<template args>:
+    {registers, spill_stores, spill_loads, stack}}."""
+    import re
+    import tempfile
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in names:
+        fd, out = tempfile.mkstemp(suffix=".so", dir=build.BUILD_DIR)
+        os.close(fd)
+        procs.append((out, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
+             str(build.CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    usage, kernel = {}, None
+    for out, proc in procs:
+        stdout, stderr = proc.communicate()
+        os.unlink(out)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc -Xptxas -v failed:\n{stderr}{stdout}")
+        for line in stderr.splitlines():
+            m = re.search(r"Compiling entry function '.*?(flash_wgmma_kernel|"
+                          r"flash_kernel|paged_mma_kernel|paged_stats_kernel)"
+                          r"I(\w*?)E[EvP]", line)
+            if m:
+                args = (m.group(2).replace("13__nv_bfloat16Li", "bf16,")
+                        .replace("fLi", "f32,").replace("Li", ""))
+                kernel = f"{m.group(1)}<{args}>"
+                usage[kernel] = {}
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", line)
+            if m and kernel:
+                usage[kernel].update(stack=int(m.group(1)),
+                                     spill_stores=int(m.group(2)),
+                                     spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                usage[kernel]["registers"] = int(m.group(1))
+    return usage
 
 
 def phase_device(torch, build):
@@ -338,10 +397,11 @@ def phase_device(torch, build):
     print(smi, flush=True)
     t0 = time.perf_counter()
     build.build(build.sources())
+    build_s = time.perf_counter() - t0
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "kind": torch.cuda.get_device_name(0),
-          "build_s": time.perf_counter() - t0})
+          "kind": torch.cuda.get_device_name(0), "build_s": build_s,
+          "ptxas": ptxas_usage(build)})
     return smi
 
 
@@ -982,7 +1042,8 @@ def phase_dlrm_kernels(torch, np, F, dlrm, er, ref, cfg, params):
             lambda: ref.embedding_reduce(table, flat, seg, s), nbytes, BATCH,
             lib)
         out[name] = {k: e[k] for k in ("mismatches", "max_abs_err", "us",
-                                       "plain_us", "library_us", "bound_us",
+                                       "plain_us", "library_us",
+                                       "library_device_us", "bound_us",
                                        "device_us", "device_cold_us",
                                        "loop_us", "plain_device_us",
                                        "bytes")}
@@ -1123,9 +1184,10 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
     """One floating-point kernel against its plain version on the same
     inputs: elements outside ``tol`` (allclose, rtol = atol = tol), the
     largest |difference|, times (CUDA events, profiler device time, L2
-    warm and cold), the plain version's and the library call's, and the
-    bound: the larger of the bytes over the memory rate and the flops
-    over the peak rate of the input type."""
+    warm and cold), the plain version's and the library call's (CUDA
+    events and profiler device time), and the bound: the larger of the
+    bytes over the memory rate and the flops over the peak rate of the
+    input type."""
     miss, err = 0, 0.0
     for a, b in zip(outs_k, outs_p):
         a, b = a.float(), b.float()
@@ -1134,6 +1196,7 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
     us = time_us(torch, k_fn)
     plain_us = time_us(torch, p_fn)
     lib_us = time_us(torch, lib_fn) if lib_fn is not None else None
+    lib_dev = device_us(torch, lib_fn)[0] if lib_fn is not None else None
     k_dev, _ = device_us(torch, k_fn)
     p_dev, _ = device_us(torch, p_fn)
     k_cold = cold_device_us(torch, k_fn)
@@ -1150,6 +1213,7 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
         "bound_by": "bytes" if bytes_us >= flops_us else "operations",
         "library_ms": None if lib_us is None else lib_us / 1e3,
         "us": us, "plain_us": plain_us, "library_us": lib_us,
+        "library_device_us": lib_dev,
         "bound_us": bound_us, "bytes": nbytes, "flops": flops,
         "device_us": k_dev, "device_cold_us": k_cold,
         "plain_device_us": p_dev,
@@ -1157,17 +1221,22 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
     }
 
 
-def lm_pool_inputs(torch, np, dtype, seed):
+def lm_pool_inputs(torch, np, dtype, seed, seqs=None, tokens=None):
     """A pool and page table as the serve engine's decode steps see them:
     32 sequences mid-generation (512-639 tokens) on random pages of a
     1,280-page pool (32 slots x 40 pages) plus the zero sentinel, the
-    rest of each table row -1; q pre-scaled f32 (32, 8, 5, 128)."""
-    b, kvh, g, hd = LM_ENGINE["slots"], 8, 5, 128
+    rest of each table row -1; q pre-scaled f32 (32, 8, 5, 128). With
+    ``seqs`` and ``tokens``: that many sequences of exactly that many
+    tokens, at the same head geometry."""
+    b, kvh, g, hd = seqs or LM_ENGINE["slots"], 8, 5, 128
     ps = LM_ENGINE["page_size"]
     maxp = -(-(LM_ENGINE["prompt_len"] + LM_ENGINE["gen_len"] - 1) // ps)
+    if tokens:
+        maxp = -(-tokens // ps)
     n_pages = b * maxp
     rng = np.random.default_rng(seed)
-    lengths = rng.integers(LM_ENGINE["prompt_len"], maxp * ps, b)
+    lengths = rng.integers(LM_ENGINE["prompt_len"], maxp * ps, b) \
+        if not tokens else np.full(b, tokens)
     perm = rng.permutation(n_pages)
     table = np.full((b, maxp), -1, np.int32)
     used = 0
@@ -1185,16 +1254,40 @@ def lm_pool_inputs(torch, np, dtype, seed):
             torch.from_numpy(lengths.astype(np.int32)).cuda())
 
 
+def paged_split_sweep(torch, pa, args, counts=(1, 2, 4, 8)):
+    """Device µs of the paged kernel on ``args`` with each split count in
+    ``counts``, by lowering ``SPLIT_TOKENS`` for the call: the measure
+    behind the wrapper's rule of one split per SPLIT_TOKENS table
+    tokens."""
+    table, kp = args[3], args[1]
+    table_tokens = table.shape[1] * kp.shape[1]
+    keep, res = pa.SPLIT_TOKENS, {}
+    try:
+        for n in counts:
+            pa.SPLIT_TOKENS = -(-table_tokens // n)
+            if pa.splits(table.shape[1], kp.shape[1]) == n:
+                res[n] = device_us(torch,
+                                   lambda: pa.paged_attention_stats(*args))[0]
+    finally:
+        pa.SPLIT_TOKENS = keep
+    return res
+
+
 def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
     """Both LM kernels against their plain versions at the serve shapes:
-    the paged stats walk on a bf16 and an f32 pool, flash prefill
+    the paged stats walk on a bf16 and an f32 pool (and its split count),
+    plus 4 sequences of 16,384 tokens on a bf16 pool, flash prefill
     attention (8 prompts of 512 tokens, 40 q / 8 kv heads) in bf16 and
     f32, and windowed (128). Returns the bf16 entries of the main path."""
     out, entries = {"phase": "lm_kernels", "nvidia_smi": smi}, {}
-    for key, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
-        args = lm_pool_inputs(torch, np, dt, SEED + 20)
+    for key, dt, seqs, tokens in (
+            ("bfloat16", torch.bfloat16, None, None),
+            ("float32", torch.float32, None, None),
+            ("long_bfloat16", torch.bfloat16, *LM_LONG)):
+        args = lm_pool_inputs(torch, np, dt, SEED + 20, seqs, tokens)
         q, kp, vp, table, lengths = args
         b, kvh, g, hd = q.shape
+        dtype_name = str(dt).rsplit(".", 1)[-1]
         tokens = int(lengths.sum())
         nbytes = (q.numel() * 4 * 2 + 2 * tokens * kvh * hd * kp.element_size()
                   + table.numel() * 4 + lengths.numel() * 4
@@ -1204,9 +1297,12 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
             torch, "paged_attention_stats", pa.paged_attention_stats(*args),
             ref.paged_attention_stats(*args),
             lambda: pa.paged_attention_stats(*args),
-            lambda: ref.paged_attention_stats(*args), LM_TOL[key], nbytes,
-            flops, key)
+            lambda: ref.paged_attention_stats(*args), LM_TOL[dtype_name],
+            nbytes, flops, dtype_name)
         e["tokens"] = tokens
+        e["splits"] = pa.splits(table.shape[1], kp.shape[1])
+        if dt == torch.bfloat16:
+            e["device_us_by_splits"] = paged_split_sweep(torch, pa, args)
         out[f"paged_{key}"] = e
         if key == "bfloat16":
             entries["paged_attention_stats"] = e

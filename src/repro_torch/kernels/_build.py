@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for Hopper (``sm_90a``) into
 ``build/repro_torch/<name>-<hash>.so`` at the root of the source tree, at
-first use. The hash covers the source and the flags, so an edited source
-builds anew and an unchanged one is loaded as it is. Libraries are loaded
+first use. The hash covers the source, the shared headers (``*.cuh``)
+and the flags, so an edited source builds anew and an unchanged one is
+loaded as it is. Libraries are loaded
 with ``ctypes``; the wrappers declare every pointer and the stream as
 ``c_void_p``.
 
@@ -46,7 +47,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built: named by a hash of the source,
+    every header beside it, and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

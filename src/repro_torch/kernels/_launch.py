@@ -22,9 +22,10 @@ P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def check(name: str, t: torch.Tensor, ndim: int, device,
-          dtype=torch.int32) -> None:
-    """Raise unless ``t`` is a contiguous ``ndim``-d CUDA tensor of
-    ``dtype`` (or of one of the dtypes in a tuple) on ``device``."""
+          dtype=torch.int32, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is an ``ndim``-d CUDA tensor of ``dtype`` (or of
+    one of the dtypes in a tuple) on ``device``, contiguous unless
+    ``contiguous`` is False."""
     if t.device.type != "cuda":
         raise ValueError(
             f"{name}: the CUDA kernel takes CUDA tensors, got {t.device} "
@@ -38,7 +39,7 @@ def check(name: str, t: torch.Tensor, ndim: int, device,
                         f"{' or '.join(str(d) for d in dtypes)}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: {t.dim()}-d, expected {ndim}-d")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

@@ -213,6 +213,36 @@ def paged_attention_stats(q, k_pages, v_pages, page_table, lengths):
     to the last physical page, the pool's zero sentinel; lengths: (B,).
     Only the first ``lengths`` positions count. A zero-length sequence
     yields (0, NEG_INF, 0): the empty softmax, safe to LSE-merge."""
+    return _range_stats(q, k_pages, v_pages, page_table,
+                        torch.zeros_like(lengths), lengths)
+
+
+def paged_attention_stats_splits(q, k_pages, v_pages, page_table, lengths,
+                                 splits: int):
+    """The CUDA kernel's split walk, plainly: the online-softmax stats of
+    each of ``splits`` contiguous token ranges [r T, (r + 1) T), T =
+    ceil(MaxP PS / splits), clipped to each sequence's length. Returns
+    (acc (S, B, KVH, G, hd), m (S, B, KVH, G), l (S, B, KVH, G)); a range
+    past the length holds the empty state (0, NEG_INF, 0). Tests hold it,
+    merged by :func:`merge_stats`, against the JAX package; the main path
+    does not use it."""
+    maxp, ps = page_table.shape[1], k_pages.shape[1]
+    t = max(1, -(-maxp * ps // splits))
+    length = torch.clamp(lengths, 0, maxp * ps)
+    accs, ms, ls = [], [], []
+    for r in range(splits):
+        lo = torch.clamp(length, max=r * t)
+        hi = torch.clamp(length, max=(r + 1) * t)
+        acc, m, l = _range_stats(q, k_pages, v_pages, page_table, lo, hi)
+        accs.append(acc)
+        ms.append(m)
+        ls.append(l)
+    return torch.stack(accs), torch.stack(ms), torch.stack(ls)
+
+
+def _range_stats(q, k_pages, v_pages, page_table, lo, hi):
+    """The stats over the positions [lo, hi) of each sequence (lo, hi:
+    (B,))."""
     b, kvh, g, hd = q.shape
     np_, ps = k_pages.shape[0], k_pages.shape[1]
     maxp = page_table.shape[1]
@@ -222,7 +252,7 @@ def paged_attention_stats(q, k_pages, v_pages, page_table, lengths):
     vv = v_pages[pt].reshape(b, maxp * ps, kvh, hd)
     s = torch.einsum("bkgh,bskh->bkgs", q.float(), kk.float())
     pos = torch.arange(maxp * ps, device=q.device)[None, :]
-    valid = (pos < lengths[:, None])[:, None, None, :]
+    valid = ((pos >= lo[:, None]) & (pos < hi[:, None]))[:, None, None, :]
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1)
     # exp through the mask: an all-masked row has m == NEG_INF, where
@@ -231,6 +261,15 @@ def paged_attention_stats(q, k_pages, v_pages, page_table, lengths):
     l = pexp.sum(dim=-1)
     acc = torch.einsum("bkgs,bskh->bkgh", pexp, vv.float())
     return acc, m, l
+
+
+def merge_stats(acc, m, l):
+    """LSE-merge online-softmax states stacked on dim 0, as the kernel's
+    cluster merge does: m = max m_r, l = sum l_r exp(m_r - m), acc = sum
+    acc_r exp(m_r - m). All-empty rows stay exactly (0, NEG_INF, 0)."""
+    mx = m.amax(dim=0)
+    w = torch.exp(m - mx[None])
+    return (acc * w[..., None]).sum(dim=0), mx, (l * w).sum(dim=0)
 
 
 def flash_attention(q, k, v, *, window: int = 0):

@@ -280,10 +280,9 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
             from repro_torch.kernels import ops as kops
 
             out = kops.flash_attention(
-                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), window=cfg.sliding_window,
-                backend=backend,
-            ).transpose(1, 2).to(q.dtype)
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                window=cfg.sliding_window, backend=backend,
+            ).transpose(1, 2)
         elif state is None and not emit_kv \
                 and S <= attn_mod.TRAIN_FULL_ATTN_MAX:
             out = attn_mod.full_attention(q, k, v, window=cfg.sliding_window)

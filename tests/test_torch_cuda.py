@@ -373,14 +373,72 @@ def _paged_case(rng, dev, dtype, b, kvh, g, hd, ps, maxp, lengths):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kvh,g,hd,ps,maxp", [
     (2, 1, 16, 4, 3), (2, 4, 16, 8, 5), (1, 2, 8, 16, 2), (8, 5, 128, 16, 40),
+    (2, 5, 64, 16, 137),
 ])
 def test_paged_attention_stats_matches_plain_version(dev, dtype, kvh, g, hd,
                                                      ps, maxp):
     """(acc, m, l) against the plain version: zero length, full, ragged,
-    -1 entries, G up to 5, the serve head geometry."""
+    -1 entries, G up to 5, the serve head geometry; 2,192 table tokens
+    (two splits of 1,096, a boundary inside a page, MaxP odd), where the
+    short rows leave the second split empty."""
     rng = np.random.default_rng(hd + ps)
     full = ps * maxp
     lengths = [0, full, full - 3, 1, 33 if full > 33 else full]
+    host, cuda = _paged_case(rng, dev, dtype, len(lengths), kvh, g, hd, ps,
+                             maxp, lengths)
+    want = ref.paged_attention_stats(*host)
+    pa.reset_launches()
+    got = pa.paged_attention_stats(*cuda)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_attention_stats"] == 1
+    tol = LM_TOL[dtype]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+    assert float(got[0][0].abs().max()) == 0.0
+    assert bool((got[1][0] == -1e30).all()) and bool((got[2][0] == 0).all())
+
+
+def test_paged_attention_stats_long_table_matches_plain_version(dev):
+    """A 4,096-token table on a bf16 pool (two splits of 2,048; the short
+    rows leave the second empty), the serve head geometry. In f32 the
+    kernel and the plain version sum 4,096 terms in two orders and part
+    ways by up to about 2e-5, past the 1e-5 tolerance, so this length is
+    held in bf16 only."""
+    rng = np.random.default_rng(4096)
+    maxp, ps = 256, 16
+    full = ps * maxp
+    lengths = [0, full, full - 3, 1, 33, full // 2 + 5]
+    host, cuda = _paged_case(rng, dev, torch.bfloat16, len(lengths), 8, 5,
+                             128, ps, maxp, lengths)
+    assert pa.splits(maxp, ps) == 2
+    want = ref.paged_attention_stats(*host)
+    pa.reset_launches()
+    got = pa.paged_attention_stats(*cuda)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_attention_stats"] == 1
+    tol = LM_TOL[torch.bfloat16]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+    assert float(got[0][0].abs().max()) == 0.0
+    assert bool((got[1][0] == -1e30).all()) and bool((got[2][0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kvh,g,hd,ps,maxp,split_tokens", [
+    (2, 5, 64, 16, 9, 16), (2, 3, 16, 4, 7, 4), (8, 5, 128, 16, 40, 96),
+    (2, 2, 128, 8, 11, 12),
+])
+def test_paged_attention_stats_splits_match_plain_version(
+        dev, monkeypatch, dtype, kvh, g, hd, ps, maxp, split_tokens):
+    """Short tables cut into many splits (SPLIT_TOKENS lowered): up to 8
+    CTAs per cluster, ranges that end inside pages, MaxP not a multiple
+    of S, and rows whose length leaves later splits empty, all merged
+    across the cluster to the plain version's (acc, m, l)."""
+    monkeypatch.setattr(pa, "SPLIT_TOKENS", split_tokens)
+    assert pa.splits(maxp, ps) > 1
+    rng = np.random.default_rng(hd + maxp)
+    full = ps * maxp
+    lengths = [0, full, full - 3, 1, ps + 1, full // 2]
     host, cuda = _paged_case(rng, dev, dtype, len(lengths), kvh, g, hd, ps,
                              maxp, lengths)
     want = ref.paged_attention_stats(*host)
@@ -400,6 +458,7 @@ def test_paged_attention_stats_matches_plain_version(dev, dtype, kvh, g, hd,
     (64, 0, 1, 8), (64, 0, 2, 16), (128, 48, 4, 8), (32, 8, 1, 8),
     (100, 0, 5, 128), (256, 128, 5, 128), (40, 0, 2, 256),
     (130, 0, 2, 64), (192, 70, 1, 64), (512, 0, 5, 128),
+    (1, 0, 5, 128), (2048, 0, 2, 128), (2048, 128, 1, 64),
 ])
 def test_flash_attention_matches_plain_version(dev, dtype, s, window, g, hd):
     """Causal GQA attention against the plain version: windows, ragged S
@@ -419,6 +478,27 @@ def test_flash_attention_matches_plain_version(dev, dtype, s, window, g, hd):
     tol = 2e-5 if dtype == torch.float32 else LM_TOL[dtype]
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_takes_strided_views(dev, dtype, hd):
+    """(B, S, H, hd) tensors passed as their (B, H, S, hd) views give the
+    kernel output of contiguous copies, bit for bit, and the output is a
+    (B, H, S, hd) view of a (B, S, H, hd) tensor."""
+    rng = np.random.default_rng(hd)
+    b, h, kvh, s = 2, 10, 2, 200
+    bshd = [torch.from_numpy(rng.normal(size=(b, s, n, hd))
+                             .astype(np.float32)).to(dtype).to(dev)
+            for n in (h, kvh, kvh)]
+    views = [t.transpose(1, 2) for t in bshd]
+    fa.reset_launches()
+    got = fa.flash_attention(*views, window=64)
+    want = fa.flash_attention(*(t.contiguous() for t in views), window=64)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 2
+    assert torch.equal(got, want)
+    assert got.shape == (b, h, s, hd) and got.transpose(1, 2).is_contiguous()
 
 
 def test_lm_wrappers_reject_bad_tensors(dev):
@@ -441,6 +521,9 @@ def test_lm_wrappers_reject_bad_tensors(dev):
         fa.flash_attention(x, x[:, :3], x[:, :3])
     with pytest.raises(TypeError):
         fa.flash_attention(x, x.to(torch.bfloat16), x)
+    wide = torch.zeros((1, 4, 16, 16), device=dev)
+    with pytest.raises(ValueError):  # a non-unit last stride
+        fa.flash_attention(wide[..., ::2], wide[..., ::2], wide[..., ::2])
 
 
 def test_lm_engine_kernels_equal_plain_on_the_card(dev):

@@ -137,3 +137,56 @@ def test_dispatch_routes_cpu_tensors_and_refuses_cuda_backend():
     q = torch.zeros((1, 2, 8, 8))
     with pytest.raises(ValueError):
         ops.flash_attention(q, q, q, backend="cuda")
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("ps,maxp", [(4, 7), (8, 5), (16, 3)])
+def test_paged_split_merge_matches_jax(splits, ps, maxp):
+    """The plain model of the CUDA kernel's split walk (contiguous token
+    ranges of ceil(MaxP PS / S) tokens, LSE-merged) against JAX's oracle
+    and Pallas kernel in f32: ranges past a short length are empty, range
+    boundaries fall inside pages (ps 4 and 8 do not divide every range),
+    -1 entries inside a length read the zero sentinel, and a zero-length
+    row comes out exactly (0, -1e30, 0). m equal, acc and l within the
+    JAX package's f32 tolerance (the merge adds in another order)."""
+    rng = np.random.default_rng(11 + splits)
+    full = ps * maxp
+    lengths = [0, full, full - 3, 1, ps + 1, full // 2]
+    jin, tin = _paged_inputs(rng, ps, maxp, 3, lengths, "f32",
+                             unmapped=[(2, 0), (4, 1), (5, maxp - 1)])
+    parts = ref.paged_attention_stats_splits(*tin, splits)
+    assert parts[0].shape[0] == splits
+    got = ref.merge_stats(*parts)
+    gold = jref.paged_attention_stats(*jin)
+    kern = jops.paged_attention_stats(*jin)
+    np.testing.assert_array_equal(interop.to_numpy(got[1]),
+                                  np.asarray(gold[1]))
+    for a, b_, c in zip(got, gold, kern):
+        _close(a, b_, 1e-5)
+        _close(a, c, 1e-5)
+    assert float(got[0][0].abs().max()) == 0.0
+    assert bool((got[1][0] == -1e30).all()) and bool((got[2][0] == 0).all())
+    # the split of the 1-token row past its first range holds the empty
+    # state exactly
+    if splits > 1:
+        assert bool((parts[1][1:, 3] == -1e30).all())
+        assert float(parts[2][1:, 3].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_flash_attention_strided_views_match_jax(dtype, window):
+    """(B, S, H, hd) tensors passed as their (B, H, S, hd) views, as the
+    model passes them, give the JAX package's result for the same
+    values."""
+    rng = np.random.default_rng(6)
+    b, h, kvh, s, hd = 2, 4, 2, 32, 8
+    jq, tq = _pair(rng.normal(size=(b, s, h, hd)), dtype)
+    jk, tk = _pair(rng.normal(size=(b, s, kvh, hd)), dtype)
+    jv, tv = _pair(rng.normal(size=(b, s, kvh, hd)), dtype)
+    views = [t.transpose(1, 2) for t in (tq, tk, tv)]
+    assert not views[0].is_contiguous()
+    got = ops.flash_attention(*views, window=window, backend="ref")
+    want = jref.flash_attention(*(x.transpose(0, 2, 1, 3)
+                                  for x in (jq, jk, jv)), window=window)
+    _close(got, want, 2e-5 if dtype == "f32" else 3e-2)
