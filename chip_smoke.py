@@ -35,7 +35,10 @@ Phases, each printing one JSON line:
                   replica cloned at step 180 (``replay_records``, one
                   ``commit`` launch per record) rebuild the final replica;
 8. dlrm_kernels — embedding_reduce against its plain version on 8 tables of
-                  2^20 x 64 rows (f32, and a bf16 copy), 256 queries;
+                  2^20 x 64 rows (f32, and a bf16 copy), 256 queries,
+                  beside embedding_bag L2-warm and cold; and a sweep of
+                  1, 32 and 128 lookups a segment at the same 65,536
+                  lookups;
 9. dlrm_serve   — 200 DLRM engine steps at budget 256 through an ``auto``
                   and a ``ref`` engine: equal responses, logits equal a
                   direct ``forward``, malformed requests NACKed;
@@ -291,14 +294,16 @@ def kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn, nbytes, batch,
     mismatching elements of its outputs, then its time (CUDA events,
     median of 50 calls, and device time from the profiler), the plain
     version's, the library call's if there is one (by CUDA events, and
-    its device time from the profiler, like for like with the kernel's),
-    and its bound: the bytes it must move over the card's memory rate."""
+    its device time from the profiler, L2-warm and cold, like for like
+    with the kernel's), and its bound: the bytes it must move over the
+    card's memory rate."""
     miss = sum(mismatches(torch, a, b) for a, b in zip(outs_k, outs_p))
     err = max(max_abs_err(torch, a, b) for a, b in zip(outs_k, outs_p))
     us = time_us(torch, k_fn)
     plain_us = time_us(torch, p_fn)
     lib_us = time_us(torch, lib_fn) if lib_fn is not None else None
     lib_dev = device_us(torch, lib_fn)[0] if lib_fn is not None else None
+    lib_cold = cold_device_us(torch, lib_fn) if lib_fn is not None else None
     k_dev, _ = device_us(torch, k_fn)
     p_dev, p_kernels = device_us(torch, p_fn)
     k_loop = loop_us(torch, k_fn)
@@ -313,7 +318,7 @@ def kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn, nbytes, batch,
         "bound_ms": bound_us / 1e3, "bound_by": "bytes",
         "library_ms": None if lib_us is None else lib_us / 1e3,
         "us": us, "plain_us": plain_us, "library_us": lib_us,
-        "library_device_us": lib_dev,
+        "library_device_us": lib_dev, "library_device_cold_us": lib_cold,
         "bound_us": bound_us, "bytes": nbytes, "batch": batch,
         "device_us": k_dev, "device_cold_us": k_cold, "loop_us": k_loop,
         "plain_device_us": p_dev,
@@ -331,7 +336,8 @@ def check_entries(entries, phase):
 def entry_summary(entries):
     return {k: {f: v[f] for f in ("mismatches", "max_abs_err", "us",
                                   "plain_us", "library_us",
-                                  "library_device_us", "bound_us",
+                                  "library_device_us",
+                                  "library_device_cold_us", "bound_us",
                                   "device_us", "device_cold_us", "loop_us",
                                   "plain_device_us")}
             for k, v in entries.items()}
@@ -341,7 +347,7 @@ def clone_state(st):
     return type(st)(*(t.clone() for t in st))
 
 
-PTXAS_SOURCES = ("flash_attention", "paged_attention")
+PTXAS_SOURCES = ("flash_attention", "paged_attention", "embedding_reduce")
 
 
 def ptxas_usage(build, names=PTXAS_SOURCES):
@@ -369,8 +375,8 @@ def ptxas_usage(build, names=PTXAS_SOURCES):
             raise RuntimeError(f"nvcc -Xptxas -v failed:\n{stderr}{stdout}")
         for line in stderr.splitlines():
             m = re.search(r"Compiling entry function '.*?(flash_wgmma_kernel|"
-                          r"flash_kernel|paged_mma_kernel|paged_stats_kernel)"
-                          r"I(\w*?)E[EvP]", line)
+                          r"flash_kernel|paged_mma_kernel|paged_stats_kernel|"
+                          r"embedding_reduce_kernel)I(\w*?)E[EvP]", line)
             if m:
                 args = (m.group(2).replace("13__nv_bfloat16Li", "bf16,")
                         .replace("fLi", "f32,").replace("Li", ""))
@@ -1043,7 +1049,8 @@ def phase_dlrm_kernels(torch, np, F, dlrm, er, ref, cfg, params):
             lib)
         out[name] = {k: e[k] for k in ("mismatches", "max_abs_err", "us",
                                        "plain_us", "library_us",
-                                       "library_device_us", "bound_us",
+                                       "library_device_us",
+                                       "library_device_cold_us", "bound_us",
                                        "device_us", "device_cold_us",
                                        "loop_us", "plain_device_us",
                                        "bytes")}
@@ -1051,9 +1058,49 @@ def phase_dlrm_kernels(torch, np, F, dlrm, er, ref, cfg, params):
         if name == "f32":
             entries["embedding_reduce"] = e
         del table, tables
+    out["lookup_sweep"] = lookup_sweep(torch, F, er, ref,
+                                       params["tables"].reshape(t * r, d), n)
     torch.cuda.empty_cache()
     emit(out)
     return entries
+
+
+def lookup_sweep(torch, F, er, ref, table, n, lookups=(1, 32, 128)):
+    """embedding_reduce and embedding_bag at ``n`` lookups of uniform
+    random rows of the f32 ``table``, in segments of each of ``lookups``:
+    mismatches against the plain version, and device µs of both, L2-warm
+    and cold. Raises on a mismatch."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rows, d = table.shape
+    res = {}
+    for l in lookups:
+        s = n // l
+        idx = torch.randint(0, rows, (n,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        seg = torch.arange(s, dtype=torch.int32,
+                           device="cuda").repeat_interleave(l)
+        idx64 = idx.long()
+        offsets = torch.arange(0, n, l, device="cuda")
+        miss = mismatches(torch, er.embedding_reduce(table, idx, seg, s),
+                          ref.embedding_reduce(table, idx, seg, s))
+        if miss:
+            raise AssertionError(f"dlrm_kernels: {miss} mismatches at {l} "
+                                 "lookups a segment")
+
+        def k_fn(idx=idx, seg=seg, s=s):
+            return er.embedding_reduce(table, idx, seg, s)
+
+        def lib(idx64=idx64, offsets=offsets):
+            return F.embedding_bag(idx64, table, offsets, mode="sum")
+
+        nbytes = n * d * 4 + n * 4 * 2 + s * d * 4
+        res[l] = {"segments": s, "mismatches": miss,
+                  "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+                  "device_us": device_us(torch, k_fn)[0],
+                  "device_cold_us": cold_device_us(torch, k_fn),
+                  "library_device_us": device_us(torch, lib)[0],
+                  "library_device_cold_us": cold_device_us(torch, lib)}
+    return res
 
 
 def dlrm_stream(np, dlrm, cfg, n, rng):
@@ -1185,7 +1232,8 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
     inputs: elements outside ``tol`` (allclose, rtol = atol = tol), the
     largest |difference|, times (CUDA events, profiler device time, L2
     warm and cold), the plain version's and the library call's (CUDA
-    events and profiler device time), and the bound: the larger of the
+    events and profiler device time, L2 warm and cold), and the bound: the
+    larger of the
     bytes over the memory rate and the flops over the peak rate of the
     input type."""
     miss, err = 0, 0.0
@@ -1197,6 +1245,7 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
     plain_us = time_us(torch, p_fn)
     lib_us = time_us(torch, lib_fn) if lib_fn is not None else None
     lib_dev = device_us(torch, lib_fn)[0] if lib_fn is not None else None
+    lib_cold = cold_device_us(torch, lib_fn) if lib_fn is not None else None
     k_dev, _ = device_us(torch, k_fn)
     p_dev, _ = device_us(torch, p_fn)
     k_cold = cold_device_us(torch, k_fn)
@@ -1213,7 +1262,7 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
         "bound_by": "bytes" if bytes_us >= flops_us else "operations",
         "library_ms": None if lib_us is None else lib_us / 1e3,
         "us": us, "plain_us": plain_us, "library_us": lib_us,
-        "library_device_us": lib_dev,
+        "library_device_us": lib_dev, "library_device_cold_us": lib_cold,
         "bound_us": bound_us, "bytes": nbytes, "flops": flops,
         "device_us": k_dev, "device_cold_us": k_cold,
         "plain_device_us": p_dev,

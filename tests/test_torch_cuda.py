@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from embedding_cases import COPY_BYTES, WIDTHS, edge_case, \
+    plain_with_zero_rows
 from repro_torch import interop
 from repro_torch.core import dlrm
 from repro_torch.core import engine as eng
@@ -264,6 +266,59 @@ def test_embedding_reduce_matches_plain_version(dev, dtype, n, segs, d):
     _same(want, got, "embedding_reduce")
 
 
+@pytest.mark.parametrize("dtype,d", WIDTHS)
+def test_embedding_reduce_walk_edge_cases(dev, dtype, d):
+    """Bit for bit against the plain version, a row outside the table
+    reading as zero: segments of 1, 31, 32, 33, 100 and 1,000 lookups (so
+    chunks cross the two stages), empty first, middle and last segments,
+    seg_ids outside [0, S), negative and too-large rows (one a segment's
+    first), an all-(-0.0) segment, at each copy width: 16 bytes (f32 D = 8
+    and 64, bf16 D = 64 and 200), 4 (f32 D = 6 and 70, bf16 D = 100) and
+    2 (bf16 D = 33)."""
+    table, idx, seg, s = edge_case(d, dtype, d)
+    want = plain_with_zero_rows(table, idx, seg, s)
+    cuda = table.to(dev)
+    assert er.copy_bytes(cuda) == COPY_BYTES[(dtype, d)]
+    er.reset_launches()
+    got = er.embedding_reduce(cuda, idx.to(dev), seg.to(dev), s)
+    torch.cuda.synchronize()
+    assert er.launches["embedding_reduce"] == 1
+    _same(want, got, "embedding_reduce")
+    assert bool(torch.signbit(got[8]).all())
+
+
+def test_embedding_reduce_unaligned_table_takes_4_byte_copies(dev):
+    """A table that starts 4 bytes into its storage cannot take 16-byte
+    copies; the 4-byte walk gives the same sums."""
+    table, idx, seg, s = edge_case(11, torch.float32, 64)
+    flat = torch.zeros(table.numel() + 1, device=dev)
+    view = flat[1:].view(table.shape)
+    view.copy_(table)
+    assert er.copy_bytes(view) == 4
+    got = er.embedding_reduce(view, idx.to(dev), seg.to(dev), s)
+    torch.cuda.synchronize()
+    _same(plain_with_zero_rows(table, idx, seg, s), got, "embedding_reduce")
+
+
+def test_embedding_reduce_table_past_4_gib(dev):
+    """A (2^24 + 4,096, 64) f32 table, 4.3 GB: rows whose byte offsets pass
+    2^31 and 2^32 sum like the plain version's on the card."""
+    rows, d = 2**24 + 4096, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    table = torch.randn((rows, d), generator=g, device=dev)
+    idx = torch.cat([
+        torch.randint(0, rows, (2000,), generator=g, device=dev),
+        torch.randint(rows - 2**23, rows, (2000,), generator=g, device=dev),
+        torch.tensor([rows - 1, 2**23, 2**24, 2**24 + 4095], device=dev),
+    ]).to(torch.int32)
+    seg = torch.sort(torch.randint(0, 300, idx.shape, generator=g,
+                                   device=dev)).values.to(torch.int32)
+    want = ref.embedding_reduce(table, idx, seg, 300)
+    got = er.embedding_reduce(table, idx, seg, 300)
+    torch.cuda.synchronize()
+    _same(want, got, "embedding_reduce")
+
+
 def test_dlrm_embedding_path_matches_plain_on_the_card(dev):
     cfg = dlrm.DLRMConfig(num_tables=4, rows=128, dim=64, lookups=16)
     params = dlrm.init_params(cfg, torch.Generator().manual_seed(1),
@@ -421,6 +476,56 @@ def test_paged_attention_stats_long_table_matches_plain_version(dev):
         torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
     assert float(got[0][0].abs().max()) == 0.0
     assert bool((got[1][0] == -1e30).all()) and bool((got[2][0] == 0).all())
+
+
+def _stats_f64(q, k_pages, v_pages, page_table, lengths):
+    """The plain version's (acc, m, l) in float64; an empty row has the
+    f32 kernel's m of -1e30."""
+    b, kvh, g, hd = q.shape
+    np_, ps = k_pages.shape[0], k_pages.shape[1]
+    maxp = page_table.shape[1]
+    pt = torch.where(page_table < 0, np_ - 1, page_table).long()
+    kk = k_pages[pt].reshape(b, maxp * ps, kvh, hd).double()
+    vv = v_pages[pt].reshape(b, maxp * ps, kvh, hd).double()
+    s = torch.einsum("bkgh,bskh->bkgs", q.double(), kk)
+    valid = (torch.arange(maxp * ps)[None, :]
+             < lengths[:, None])[:, None, None, :]
+    s = torch.where(valid, s, -torch.inf)
+    m = s.amax(dim=-1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+    empty = torch.tensor(-1e30, dtype=torch.float32).double()
+    m = torch.where(valid.any(dim=-1), m, empty)
+    return torch.einsum("bkgs,bskh->bkgh", p, vv), m, p.sum(dim=-1)
+
+
+def test_paged_attention_stats_f32_long_table_against_float64(dev):
+    """The 4,096-token case on an f32 pool, where kernel and plain version
+    part by more than the 1e-5 tolerance: both are held against a float64
+    plain version instead, and each output's largest error in the kernel
+    may be at most twice the f32 plain version's. Both sum the same 4,096
+    terms in f32 in other orders (the kernel by 32-token chunks with
+    online rescaling and two splits merged), so neither is the more
+    accurate by construction and the kernel's error may fall on either
+    side of the plain version's; 2 leaves room for that, while a dropped,
+    doubled or wrongly rescaled chunk would be off by orders of
+    magnitude."""
+    rng = np.random.default_rng(4096)
+    maxp, ps = 256, 16
+    full = ps * maxp
+    lengths = [0, full, full - 3, 1, 33, full // 2 + 5]
+    host, cuda = _paged_case(rng, dev, torch.float32, len(lengths), 8, 5,
+                             128, ps, maxp, lengths)
+    assert pa.splits(maxp, ps) == 2
+    plain = ref.paged_attention_stats(*host)
+    exact = _stats_f64(*host)
+    pa.reset_launches()
+    got = pa.paged_attention_stats(*cuda)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_attention_stats"] == 1
+    for name, k, p, x in zip(("acc", "m", "l"), got, plain, exact):
+        err_kernel = float((k.cpu().double() - x).abs().max())
+        err_plain = float((p.double() - x).abs().max())
+        assert err_kernel <= 2 * err_plain, (name, err_kernel, err_plain)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
