@@ -4,14 +4,17 @@
 Drives the port's three request apps — the KVS, chain-replicated
 transactions (TX) and DLRM inference — and paged LM serving of
 Qwen2.5-14B through the ORCA engine and the hand-written CUDA kernels, at
-deployment sizes, and holds every kernel against its plain PyTorch
-version.
+deployment sizes, with the fault and durability layer (fault injection,
+chain failover, snapshots, the WAL and crash recovery) on the TX, KVS and
+LM paths, and holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
 Phases, each printing one JSON line:
 
-1. device       — the card's name and power limit (nvidia-smi), the build;
+1. device       — the card's name and power limit (nvidia-smi), the build,
+                  and the launch floor: a one-element PyTorch kernel's
+                  device time;
 2. load         — 2^26 distinct keys PUT into a store of 2^24 buckets x 8
                   ways and 2^27 64-B values behind a 65,536 x 4 cache;
 3. kernels      — each KVS kernel against its plain version at the
@@ -34,27 +37,47 @@ Phases, each printing one JSON line:
 7. tx_resync    — the log records committed after step 180 replayed into a
                   replica cloned at step 180 (``replay_records``, one
                   ``commit`` launch per record) rebuild the final replica;
-8. dlrm_kernels — embedding_reduce against its plain version on 8 tables of
+8. tx_soak      — ``fault.soak.run_soak`` at the TX shape (32 queues of
+                  2^19 keys, seed 7, 200 steps): drops, duplicates,
+                  corruption, delays, suppressed doorbells, replica 1 killed
+                  and revived by log replay (``commit`` launches = records
+                  replayed), a never-failed twin equal bit for bit, the
+                  numpy oracle of the store;
+9. tx_crash     — ``run_crash_soak`` at the same shape (seed 11, 80 steps,
+                  a flush every 2): full snapshots and WAL deltas to a
+                  temporary directory, a kill, ``recover`` equal bit for
+                  bit to a never-crashed twin at the covered step, the
+                  ``commit`` launches = the records replayed;
+10. kvs_recover — the KVS store cut to 2^20 buckets and 2^23 values: the
+                  durability arm, then a crash, ``recover`` equal to the
+                  flushed state, and steps after recovery through the five
+                  hash kernels equal to a twin's;
+11. dlrm_kernels — embedding_reduce against its plain version on 8 tables of
                   2^20 x 64 rows (f32, and a bf16 copy), 256 queries,
                   beside embedding_bag L2-warm and cold; and a sweep of
                   1, 32 and 128 lookups a segment at the same 65,536
                   lookups;
-9. dlrm_serve   — 200 DLRM engine steps at budget 256 through an ``auto``
+12. dlrm_serve   — 200 DLRM engine steps at budget 256 through an ``auto``
                   and a ``ref`` engine: equal responses, logits equal a
                   direct ``forward``, malformed requests NACKed;
-10. merci       — MERCI-rewritten queries at the JAX bench's table size:
+13. merci       — MERCI-rewritten queries at the JAX bench's table size:
                   kernel path equals the plain path, and the raw logits;
-11. lm_kernels  — paged_attention_stats and flash_attention against their
+14. lm_kernels  — paged_attention_stats and flash_attention against their
                   plain versions at the serve shapes (a 32-sequence pool
                   of 16-token pages, 8 prompts of 512 tokens, 40 q / 8 kv
                   heads), bf16 and f32, flash also with window 128, and
                   the paged walk over 4 sequences of 16,384 tokens (bf16);
                   each with its library call's device time where there is
                   one, the paged cases with their split count;
-12. lm_serve_f32 — Qwen2.5-14B at full width cut to 4 layers, f32: the
+15. lm_serve_f32 — Qwen2.5-14B at full width cut to 4 layers, f32: the
                   kernel engine and the plain engine give equal token
                   streams and page pools within 1e-5 of each layer's scale;
-13. lm_serve    — all 48 layers in bf16 with the flash prefill, 96
+16. lm_crash    — ``run_lm_crash_soak`` on that cut at its engine shape and
+                  32 requests, the pool at 3/4 of its worst case with a
+                  host cold tier: a kill mid-decode, recovery bit for bit
+                  the never-crashed twin's, token streams byte-identical to
+                  the twin's and to a plain engine's (``ref``);
+17. lm_serve    — all 48 layers in bf16 with the flash prefill, 96
                   requests (512-token prompts, caps up to 128) through 32
                   slots: the kernel engine (the launch counts), the plain
                   engine (free-running agreement, reported), a
@@ -71,9 +94,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -159,9 +184,38 @@ LM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 FLASH_F32_TOL = 2e-5
 POOL_REL_TOL = 1e-5
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
+# fault tolerance and durability (src/repro_torch/fault): the seeded fault
+# soak and the crash soak at the TX serve shape (TX_SHAPE as 32 queues of
+# 2^19 keys each); the KVS store cut to 2^20 buckets and 2^23 values (a
+# flush copies the whole store to the host); the LM crash soak through the
+# 4-layer f32 Qwen2.5-14B cut of lm_serve_f32 at its engine shape and
+# request count, with the pool cut to 3/4 of its worst case (960 of 32 x
+# 40 pages) so that decode stalls and evicts into a host cold tier of the
+# least size the engine accepts ((slots - 1) x 40 pages)
+TX_SOAK = dict(num_queues=32, keys_per_queue=2**19, max_ops=8, val_words=16,
+               chain_len=3, log_capacity=2**18, capacity=64, budget=256)
+TX_SOAK_SEED, TX_SOAK_STEPS = 7, 200
+TX_CRASH_SEED, TX_CRASH_STEPS, TX_CRASH_EVERY = 11, 80, 2
+TX_CRASH_SNAPSHOT_EVERY = 32  # DurabilityConfig's default
+KV_RECOVER_SHAPE = dict(KV_SHAPE, num_buckets=2**20, pool_size=2**23)
+KV_DURABILITY_STEPS = 64  # the overhead arm (soak.run_durability)
+KV_RECOVER_STEPS, KV_RECOVER_AFTER = 24, 8  # crash run; steps after recovery
+LM_CRASH_ENGINE = dict(LM_ENGINE, num_pages=960, host_pages=31 * 40)
+LM_CRASH_SEED, LM_CRASH_STEPS, LM_CRASH_REQUESTS = 3, 36, LM_F32_REQUESTS
+# WAL segments of 256 MiB: a TX delta at this shape carries both rings
+# (2.3 MB) and an LM delta several 0.5 MB pages, past the 1 MiB default,
+# where every record would rotate the segment and pay an fsync of its own
+SEGMENT_BYTES = 256 << 20
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started when it was printed."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -217,6 +271,24 @@ def loop_us(torch, fn, reps=50, warmup=5):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1000.0 / reps
+
+
+def queued_us(torch, fn, reps=100, spin_cycles=100_000_000):
+    """Device µs per call by CUDA events, the calls queued behind a spin
+    kernel (``torch.cuda._sleep``) so that the card runs them back to back
+    whatever the host's launch time: what the profiler's device time
+    measures, read from events where the profiler reads 0."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -307,6 +379,7 @@ def kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn, nbytes, batch,
     k_dev, _ = device_us(torch, k_fn)
     p_dev, p_kernels = device_us(torch, p_fn)
     k_loop = loop_us(torch, k_fn)
+    k_queued = queued_us(torch, k_fn)
     k_cold = cold_device_us(torch, k_fn)
     bound_us = nbytes / HBM_BYTES_PER_S * 1e6
     src, jax_file, line = KERNELS[name]
@@ -321,7 +394,7 @@ def kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn, nbytes, batch,
         "library_device_us": lib_dev, "library_device_cold_us": lib_cold,
         "bound_us": bound_us, "bytes": nbytes, "batch": batch,
         "device_us": k_dev, "device_cold_us": k_cold, "loop_us": k_loop,
-        "plain_device_us": p_dev,
+        "device_events_us": k_queued, "plain_device_us": p_dev,
         "plain_device_launches": sum(n for _, n in p_kernels.values()),
     }
 
@@ -339,7 +412,7 @@ def entry_summary(entries):
                                   "library_device_us",
                                   "library_device_cold_us", "bound_us",
                                   "device_us", "device_cold_us", "loop_us",
-                                  "plain_device_us")}
+                                  "device_events_us", "plain_device_us")}
             for k, v in entries.items()}
 
 
@@ -409,6 +482,23 @@ def phase_device(torch, build):
           "kind": torch.cuda.get_device_name(0), "build_s": build_s,
           "ptxas": ptxas_usage(build)})
     return smi
+
+
+def phase_launch_floor(torch, smi):
+    """The least device time a launch shows: a one-element PyTorch kernel
+    (``add_``) under the same profiler, and by queued CUDA events."""
+    x = torch.zeros((1,), dtype=torch.float32, device="cuda")
+
+    def fn():
+        x.add_(1)
+
+    dev, per = device_us(torch, fn)
+    out = {"phase": "launch_floor", "nvidia_smi": smi,
+           "kernel": "one-element torch add_", "device_us": dev,
+           "device_launches": sum(n for _, n in per.values()),
+           "device_events_us": queued_us(torch, fn), "us": time_us(torch, fn)}
+    emit(out)
+    return out
 
 
 def phase_load(torch, kv, hp):
@@ -1012,6 +1102,323 @@ def phase_tx_resync(torch, tx, tc, cfg, es, snap):
 
 
 # ---------------------------------------------------------------------------
+# Fault tolerance and durability
+# ---------------------------------------------------------------------------
+
+def tree_bytes(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(tree_bytes(torch, x) for x in tree)
+
+
+def check_room(what, need):
+    """Raise unless the temporary directory has ``need`` bytes free: the
+    phase's snapshots are written there, and it is not cut to fit."""
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    if free < need:
+        raise RuntimeError(f"{what}: needs {need} bytes free under {tmp}, "
+                           f"has {free}")
+    return {"tmp_free_bytes": free, "tmp_need_bytes": need}
+
+
+def flush_summary(recs):
+    """The flushes of a run: kinds, payload bytes, and the synchronous
+    device-to-host copy each made (bytes, µs)."""
+    copy_us = [r.copy_us for r in recs]
+    return {
+        "flushes": len(recs),
+        "kinds": {k: sum(r.kind == k for r in recs)
+                  for k in ("full", "delta", "skipped")},
+        "payload_bytes": sum(r.bytes for r in recs),
+        "host_copy_bytes_per_flush": recs[0].copy_bytes if recs else 0,
+        "host_copy_us_median": statistics.median(copy_us) if recs else None,
+        "host_copy_us_max": max(copy_us) if recs else None,
+        "host_copy_gb_per_s": (sum(r.copy_bytes for r in recs)
+                               / (sum(copy_us) * 1e-6) / 1e9
+                               if recs else None),
+        "wait_us_median": (statistics.median(r.wait_us for r in recs)
+                           if recs else None),
+    }
+
+
+def phase_tx_soak(torch, tc, soak, smi):
+    """run_soak at the TX serve shape: the faulted run (drop, duplicate,
+    corrupt, delay, doorbell suppression, replica 1 killed at step 66 and
+    revived by log replay at 133) and its never-failed twin, every check
+    of run_soak (conservation, equal status counts, replicas bit for bit
+    the twin's, the numpy oracle of the store). Each replayed record is
+    one ``commit`` launch."""
+    torch.cuda.synchronize()
+    tc.reset_launches()
+    t0 = time.perf_counter()
+    r = soak.run_soak(seed=TX_SOAK_SEED, steps=TX_SOAK_STEPS, device="cuda",
+                      **TX_SOAK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tc.launches)
+    out = {"phase": "tx_soak", "nvidia_smi": smi, "seconds": secs,
+           "seed": TX_SOAK_SEED, "steps": TX_SOAK_STEPS, **TX_SOAK,
+           "engine": r["engine"], "counters": r["counters"],
+           "status_counts": {str(k): v for k, v in
+                             sorted(r["status_counts"].items())},
+           "requests": r["requests"], "responses": r["responses"],
+           "resubmits": r["resubmits"], "monitor_events": r["monitor_events"],
+           "resync_records": r["resync_records"], "launches": launches}
+    emit(out)
+    if launches["commit"] != r["resync_records"] or not r["resync_records"] \
+            or not launches["commit_chain"]:
+        raise AssertionError(f"tx_soak: launches {launches} for "
+                             f"{r['resync_records']} resync records")
+    return out
+
+
+def phase_tx_crash(torch, tx, tc, soak, smi):
+    """run_crash_soak at the TX serve shape: flushes every 2 steps
+    (adaptive, a full snapshot at most every 32 steps), a kill at wall
+    step 41 leaving a torn snapshot, delta and segment tail, recovery
+    (snapshot + WAL replay, one ``commit`` launch per redo record), and a
+    never-crashed twin whose state at the covered step must equal the
+    recovered one bit for bit."""
+    chain_b = tree_bytes(torch, tx.make_chain(tx.TxConfig(**TX_SHAPE),
+                                              "meta"))  # shapes only
+    # two runs, each with up to two snapshots on disk while the newer one
+    # commits, and the segments
+    room = check_room("tx_crash", 5 * chain_b)
+    torch.cuda.synchronize()
+    tc.reset_launches()
+    t0 = time.perf_counter()
+    r = soak.run_crash_soak(seed=TX_CRASH_SEED, steps=TX_CRASH_STEPS,
+                            every=TX_CRASH_EVERY,
+                            snapshot_every=TX_CRASH_SNAPSHOT_EVERY,
+                            mode="adaptive", segment_bytes=SEGMENT_BYTES,
+                            device="cuda", **TX_SOAK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(tc.launches)
+    c = r["crash"]
+    replayed = (c["tx_records_replayed"] + r["resync_records"]
+                + r["control_resync_records"])
+    out = {"phase": "tx_crash", "nvidia_smi": smi, "seconds": secs,
+           "seed": TX_CRASH_SEED, "steps": TX_CRASH_STEPS,
+           "every": TX_CRASH_EVERY,
+           "snapshot_every": TX_CRASH_SNAPSHOT_EVERY, "mode": "adaptive",
+           "segment_bytes": SEGMENT_BYTES,
+           "chain_bytes": chain_b, **room,
+           "crash": {k: v for k, v in c.items() if k != "recovered_state"},
+           "covered": r["covered"], "engine": r["engine"],
+           "counters": r["counters"],
+           "status_counts": {str(k): v for k, v in
+                             sorted(r["status_counts"].items())},
+           "responses": r["responses"], "resubmits": r["resubmits"],
+           "monitor_events": r["monitor_events"],
+           "flushes_main": flush_summary(r["flush_records"]),
+           "flushes_twin": flush_summary(r["control_flush_records"]),
+           "mgr_stats_after_crash": r["durability_stats"],
+           "mgr_stats_twin": r["control_durability_stats"],
+           "resync_records": {"main": r["resync_records"],
+                              "twin": r["control_resync_records"]},
+           "records_replayed": replayed, "launches": launches}
+    emit(out)
+    if launches["commit"] != replayed or not c["tx_records_replayed"]:
+        raise AssertionError(f"tx_crash: {launches['commit']} commit "
+                             f"launches for {replayed} replayed records")
+    return out
+
+
+def kvs_stream(torch, kv, cfg, n, g):
+    """``n`` KVS requests on the card: 70% PUT, 30% GET, keys over 2^20
+    key indices (mixed as in the load phase), random values."""
+    idx = torch.randint(0, 2**20, (n,), generator=g, device="cuda")
+    is_put = torch.rand((n,), generator=g, device="cuda") < 0.7
+    op = torch.where(is_put, kv.OP_PUT, kv.OP_GET).to(torch.int32)
+    vals = torch.randint(-2**31, 2**31 - 1, (n, cfg.val_words), generator=g,
+                         device="cuda", dtype=torch.int32)
+    vals = torch.where(is_put[:, None], vals, 0)
+    return torch.cat([op[:, None], key_words(idx, torch), vals], dim=1)
+
+
+def phase_kvs_recover(torch, eng, kv, hp, soak, frec, smi):
+    """The KVS durability path at the cut store: the overhead arm
+    (``run_durability``), then a run that flushes every 2 steps (a full
+    snapshot, then dirty-row deltas), a kill leaving a torn snapshot and
+    segment tail, ``recover``, and engine steps from the recovered state
+    through the five hash kernels that must equal a twin's from the
+    flushed state through the plain versions (a ``ref`` engine), at this
+    store's shape."""
+    cfg = kv.KVConfig(**KV_RECOVER_SHAPE)
+    store_b = tree_bytes(torch, kv.make(cfg, "meta"))
+    room = check_room("kvs_recover", 6 * store_b)
+    root = tempfile.mkdtemp(prefix="orca-kvs-recover-")
+    try:
+        torch.cuda.synchronize()
+        hp.reset_launches()
+        t0 = time.perf_counter()
+        arm = soak.run_durability(
+            seed=SEED, steps=KV_DURABILITY_STEPS, app="kvs", app_cfg=cfg,
+            num_queues=QUEUES, capacity=CAPACITY, budget=BATCH,
+            durability=frec.DurabilityConfig(
+                os.path.join(root, "arm"), every=2, mode="adaptive",
+                segment_bytes=SEGMENT_BYTES),
+            device="cuda")
+        torch.cuda.synchronize()
+        arm_s = time.perf_counter() - t0
+        arm_launches = dict(hp.launches)
+        arm_flushes = flush_summary(arm.pop("flush_records"))
+
+        w = kv.request_words(cfg)
+        ecfg = eng.EngineConfig(num_queues=QUEUES, capacity=CAPACITY,
+                                req_words=w, resp_words=w, budget=BATCH)
+        app_fn = eng.bind_app(kv.app_step, cfg, ecfg)
+        ecfg_ref = ecfg._replace(kernel_backend="ref")
+        app_ref = eng.bind_app(kv.app_step, cfg, ecfg_ref)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+        stream = kvs_stream(torch, kv, cfg,
+                            (KV_RECOVER_STEPS + KV_RECOVER_AFTER) * BATCH, g)
+        qids = torch.arange(QUEUES, dtype=torch.int32, device="cuda")
+
+        def step(es, s, fn=app_fn, c=ecfg):
+            batch = stream[s * BATCH: (s + 1) * BATCH]
+            for v in range(BATCH // QUEUES):
+                es = eng.inject(es, qids, batch[v * QUEUES: (v + 1) * QUEUES])
+            es, _ = eng.run_steps(es, fn, c, 1)
+            return es
+
+        d = os.path.join(root, "crash")
+        mgr = frec.DurabilityManager(frec.DurabilityConfig(
+            d, every=2, mode="adaptive", segment_bytes=SEGMENT_BYTES))
+        es = eng.make(ecfg, kv.make(cfg, "cuda"))
+        hp.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(KV_RECOVER_STEPS):
+            es = step(es, s)
+            if (s + 1) % 2 == 0:
+                mgr.flush(es)
+                flushed = clone_tree(torch, es)
+            es = eng.drain_responses(es, CAPACITY)[2]
+        mgr.wait()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = dict(hp.launches)
+        del es
+        # the kill: a torn snapshot attempt and a torn segment tail
+        torn, seg, seg_size = soak.torn_artifacts(d, KV_RECOVER_STEPS + 1)
+        like = eng.make(ecfg, kv.make(cfg, "cuda"))
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec, covered = frec.recover(d, like, stats=stats)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        if covered != int(flushed.steps) or any(map(os.path.exists, torn)) \
+                or seg is None or os.path.getsize(seg) != seg_size:
+            raise AssertionError(f"kvs_recover: covered {covered}, torn "
+                                 f"artifacts left: {torn}, segment {seg}")
+        same_state(torch, rec, flushed, "kvs_recover: recovered vs flushed")
+        # after recovery: the kernel engine's steps, and the plain engine's
+        # from the flushed state
+        hp.reset_launches()
+        for s in range(KV_RECOVER_STEPS, KV_RECOVER_STEPS + KV_RECOVER_AFTER):
+            rec = step(eng.drain_responses(rec, CAPACITY)[2], s)
+        torch.cuda.synchronize()
+        after = dict(hp.launches)
+        for s in range(KV_RECOVER_STEPS, KV_RECOVER_STEPS + KV_RECOVER_AFTER):
+            flushed = step(eng.drain_responses(flushed, CAPACITY)[2], s,
+                           app_ref, ecfg_ref)
+        torch.cuda.synchronize()
+        if dict(hp.launches) != after:
+            raise AssertionError("kvs_recover: the ref engine launched "
+                                 f"kernels: {hp.launches} after {after}")
+        same_state(torch, rec, flushed, "kvs_recover: kernel steps after "
+                   "recovery vs plain steps from the flush")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"phase": "kvs_recover", "nvidia_smi": smi, "shape":
+           KV_RECOVER_SHAPE, "store_bytes": store_b, **room,
+           "arm": {**arm, "seconds": arm_s, "flushes": arm_flushes,
+                   "launches": arm_launches},
+           "crash_run": {"steps": KV_RECOVER_STEPS, "seconds": run_s,
+                         "flushes": flush_summary(mgr.records),
+                         "mgr_stats": mgr.stats(),
+                         "launches": run_launches},
+           "covered": covered, "recover_s": recover_s, "recover": stats,
+           "steps_after_recovery": KV_RECOVER_AFTER,
+           "launches_after_recovery": after,
+           "seconds": arm_s + run_s + recover_s}
+    out["recover"]["truncated"] = [os.path.basename(p)
+                                   for p in stats["truncated"]]
+    emit(out)
+    dead = [k for k, v in after.items() if not v]
+    if dead:
+        raise AssertionError(f"kvs_recover: not launched after recovery: "
+                             f"{dead}")
+    out["launches"] = {k: arm_launches[k] + run_launches[k] + after[k]
+                       for k in after}
+    return out
+
+
+def phase_lm_crash(torch, eng, cfg_mod, model, pk, pa, fa, soak, ctx, smi):
+    """run_lm_crash_soak through the paged engine with a host cold tier,
+    on the 4-layer f32 Qwen2.5-14B cut: dirty-page deltas and cold slabs
+    in the WAL, a kill mid-decode, recovery bit for bit the never-crashed
+    twin's state at the covered step, token streams byte-identical to the
+    twin's and to a third timeline through the plain engine (``ref``: the
+    kernels held against their plain versions at these shapes), the torn
+    segment tail truncated, fewer fsyncs than records."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, _, nbytes = lm_setup(torch, cfg_mod, model, ctx,
+                                      num_layers=LM_F32_LAYERS,
+                                      dtype="float32")
+    ecfg = eng.LMEngineConfig(**LM_CRASH_ENGINE)
+    pool_b = tree_bytes(torch, pk.make(eng.lm_paged_kv_config(ecfg, cfg, ctx),
+                                       ecfg.slots, torch.float32, "meta"))
+    # three timelines, each with up to two snapshots of the pool on disk
+    room = check_room("lm_crash", 6 * pool_b)
+    torch.cuda.synchronize()
+    pa.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    r = soak.run_lm_crash_soak(seed=LM_CRASH_SEED, steps=LM_CRASH_STEPS,
+                               n_requests=LM_CRASH_REQUESTS, ecfg=ecfg,
+                               segment_bytes=SEGMENT_BYTES,
+                               model=(cfg, ctx, params), device="cuda",
+                               twin_backend="ref")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {**pa.launches, **fa.launches}
+    main = r["main"]
+    out = {"phase": "lm_crash", "nvidia_smi": smi, "arch": LM_ARCH,
+           "layers": LM_F32_LAYERS, "dtype": "float32", "param_bytes": nbytes,
+           "engine": LM_CRASH_ENGINE, "requests": LM_CRASH_REQUESTS,
+           "pool_bytes": pool_b, **room, "seconds": secs,
+           "seconds_per_timeline": r["seconds"],
+           "plain_twin_streams_equal": True,
+           "covered": r["covered"], "crash_at": r["crash_at"],
+           "recover_s": main["crash"]["recover_s"],
+           "wal_records_applied": main["crash"]["wal_records_applied"],
+           "torn_segment_truncated": main["crash"]["torn_segment_truncated"],
+           "delivered": {str(q): len(v) for q, v in
+                         main["delivered"].items()},
+           "tokens": sum(int(row[0]) for v in main["delivered"].values()
+                         for row in v.values()),
+           "evictions": main["evictions"], "restores": main["restores"],
+           "budget_refusals": main["budget_refusals"],
+           "wall_ticks": {"main": main["wall_ticks"],
+                          "ctrl": r["ctrl"]["wall_ticks"],
+                          "plain_twin": r["twin"]["wall_ticks"]},
+           "durability": r["stats"],
+           "flushes_main": flush_summary(main["flush_records"]),
+           "launches": launches}
+    emit(out)
+    if not all(launches.values()):
+        raise AssertionError(f"lm_crash: launches {launches}")
+    del params, r, main
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # ORCA-DLRM
 # ---------------------------------------------------------------------------
 
@@ -1247,6 +1654,7 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
     lib_dev = device_us(torch, lib_fn)[0] if lib_fn is not None else None
     lib_cold = cold_device_us(torch, lib_fn) if lib_fn is not None else None
     k_dev, _ = device_us(torch, k_fn)
+    k_queued = queued_us(torch, k_fn)
     p_dev, _ = device_us(torch, p_fn)
     k_cold = cold_device_us(torch, k_fn)
     bytes_us = nbytes / HBM_BYTES_PER_S * 1e6
@@ -1265,7 +1673,7 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
         "library_device_us": lib_dev, "library_device_cold_us": lib_cold,
         "bound_us": bound_us, "bytes": nbytes, "flops": flops,
         "device_us": k_dev, "device_cold_us": k_cold,
-        "plain_device_us": p_dev,
+        "device_events_us": k_queued, "plain_device_us": p_dev,
         "tflops_per_s": flops / (k_dev * 1e-6) / 1e12 if k_dev else None,
     }
 
@@ -1756,6 +2164,8 @@ def main() -> int:
     from repro_torch.core import ringbuf as rb
     from repro_torch.core import transaction as tx
     from repro_torch.core import tx_app
+    from repro_torch.fault import recovery as frec
+    from repro_torch.fault import soak
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_reduce as er
     from repro_torch.kernels import flash_attention as fa
@@ -1769,6 +2179,7 @@ def main() -> int:
 
     torch.manual_seed(SEED)
     smi = phase_device(torch, _build)
+    phase_launch_floor(torch, smi)
 
     # KVS: the store (10.2 GB) is freed before the next path
     cfg, state, stored = phase_load(torch, kv, hp)
@@ -1797,6 +2208,18 @@ def main() -> int:
     del es, snap, stream
     torch.cuda.empty_cache()
 
+    # fault tolerance and durability: each phase's launches join the
+    # kernels' counts of the main path
+    for out in (phase_tx_soak(torch, tc, soak, smi),
+                phase_tx_crash(torch, tx, tc, soak, smi)):
+        for name in ("commit", "commit_chain"):
+            entries[name]["launches"] += out["launches"][name]
+        torch.cuda.empty_cache()
+    out = phase_kvs_recover(torch, eng, kv, hp, soak, frec, smi)
+    for name, n in out["launches"].items():
+        entries[name]["launches"] += n
+    torch.cuda.empty_cache()
+
     # DLRM
     dcfg = dlrm.DLRMConfig(**DLRM_SHAPE)
     params = dlrm.init_params(
@@ -1818,10 +2241,12 @@ def main() -> int:
     lm_entries = phase_lm_kernels(torch, np, F, pa, fa, ref, smi)
     phase_lm_serve_f32(torch, np, eng, rb, lm_configs, model, pa, fa, ctx,
                        smi)
+    crash = phase_lm_crash(torch, eng, lm_configs, model, pk, pa, fa, soak,
+                           ctx, smi)
     launches = phase_lm_serve(torch, np, eng, rb, lm_configs, model, pk, pa,
                               fa, ref, ctx, smi)
     for name, e in lm_entries.items():
-        e["launches"] = launches[name]
+        e["launches"] = launches[name] + crash["launches"][name]
     entries.update(lm_entries)
 
     dead = [k for k, e in entries.items() if not e["launches"]]

@@ -6,6 +6,10 @@ through the CUDA paged-attention kernel.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --paged     # one GPU
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
+
+The fault and durability flags pass through to ``repro_torch.launch.serve``:
+``--inject-faults SEED``, ``--snapshot-dir DIR``, ``--snapshot-every N``,
+``--durability-mode {full,delta,adaptive}`` and ``--recover``.
 """
 import sys
 
@@ -25,14 +29,16 @@ def main():
                     help="decode through the shared KV page pool")
     ap.add_argument("--backend", default="auto",
                     choices=("auto", "cuda", "ref"))
-    args = ap.parse_args()
-    serve_mod.main([
+    # every other flag (the fault and durability ones) goes through as is
+    args, rest = ap.parse_known_args()
+    argv = [
         "--arch", args.arch,
         "--requests", str(args.requests),
         "--prompt-len", "12", "--gen-len", "8",
         "--device", args.device,
         "--backend", args.backend,
-    ] + (["--paged"] if args.paged else []))
+    ] + (["--paged"] if args.paged else []) + rest
+    serve_mod.main(argv)
 
 
 if __name__ == "__main__":

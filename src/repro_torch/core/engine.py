@@ -710,7 +710,8 @@ def _lm_step_paged(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
 # Host-boundary swap service: device pool <-> host cold tier
 # ---------------------------------------------------------------------------
 
-def make_swap_service(cfg: LMEngineConfig, model_cfg, ctx, *, cold=None):
+def make_swap_service(cfg: LMEngineConfig, model_cfg, ctx, *, budget=None,
+                      cold=None):
     """The step-boundary evict/restore policy of an oversubscribed paged
     engine (``cfg.host_pages > 0``). Returns ``(service, cold, pcfg)``:
     ``service(state) -> state`` runs between engine steps, reads a few
@@ -722,7 +723,12 @@ def make_swap_service(cfg: LMEngineConfig, model_cfg, ctx, *, cold=None):
     ``host_pages >= (slots - 1) * mppr`` check): restore cold slots FIFO
     while the pool has a full worst-case request spare; evict at most one
     victim per call, only when stalled runners outnumber free pages — the
-    youngest hot non-terminal slot, never the only runner."""
+    youngest hot non-terminal slot, never the only runner.
+
+    ``budget`` (a ``placement.MemoryBudget``) charges parked pages to the
+    ledger the durability tier also reads, so eviction also needs budget
+    headroom. Pass ``cold`` to reuse a tier (crash recovery restores into
+    it)."""
     from repro_torch.models.layers import dtype_of
     from repro_torch.serving import kv_cache as pk
 
@@ -731,7 +737,7 @@ def make_swap_service(cfg: LMEngineConfig, model_cfg, ctx, *, cold=None):
     pcfg = lm_paged_kv_config(cfg, model_cfg, ctx)
     if cold is None:
         cold = pk.HostColdTier(pcfg, cfg.host_pages,
-                               dtype=dtype_of(model_cfg.dtype))
+                               dtype=dtype_of(model_cfg.dtype), budget=budget)
     mppr = pcfg.max_pages_per_seq
     ps = pcfg.page_size
 

@@ -289,8 +289,12 @@ def swap_in(state: PagedKVState, cfg: PagedKVConfig, seq: int, k, v):
     ), ok
 
 
-def _host_bits(t: torch.Tensor) -> np.ndarray:
-    """A CPU numpy copy of ``t``'s bits (numpy has no bfloat16)."""
+def _host_bits(t) -> np.ndarray:
+    """``t``'s bits on the host as numpy (numpy has no bfloat16): a tensor,
+    or a numpy array (the JAX package's bfloat16 ones included)."""
+    if not isinstance(t, torch.Tensor):
+        t = np.asarray(t)
+        return t.view(np.int16) if t.dtype.name == "bfloat16" else t
     t = t.detach().cpu()
     if t.element_size() == 2:
         t = t.view(torch.int16)
@@ -303,10 +307,18 @@ class HostColdTier:
     touch it by accident. Pages are slab-allocated from a free list of
     ``host_pages``; each evicted slot owns a run of host pages, and
     ``order`` (eviction order) drives FIFO restore. Pages are kept as
-    their bits (int16 for bf16), so any pool dtype round-trips exactly."""
+    their bits (int16 for bf16), so any pool dtype round-trips exactly.
+
+    With a ``placement.MemoryBudget`` attached, every store reserves
+    ``cold:<slot>`` on the shared DRAM ledger and every drop releases it —
+    the ledger the durability tier also reads, so KV eviction and flush
+    placement see one pool. The tier is part of the persistence domain:
+    :meth:`state_arrays` / :meth:`restore_arrays` round-trip the slabs and
+    the allocator through the durability snapshot and WAL
+    (``fault.recovery``), in the JAX package's layout."""
 
     def __init__(self, cfg: PagedKVConfig, host_pages: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, budget=None):
         self.cfg = cfg
         self.dtype = dtype
         self.host_pages = int(host_pages)
@@ -320,22 +332,43 @@ class HostColdTier:
         self.order: list[int] = []  # eviction order (FIFO restore)
         self.evictions = 0
         self.restores = 0
+        self.budget = budget
+        self.budget_refusals = 0
+
+    @property
+    def page_bytes(self) -> int:
+        """Host bytes one parked page costs (k + v slabs)."""
+        c = self.cfg
+        return (2 * c.layers * c.page_size * c.kv_heads * c.head_dim
+                * self.k.dtype.itemsize)
 
     @property
     def pages_used(self) -> int:
         return self.host_pages - len(self.free)
 
+    def can_store(self, n_pages: int) -> bool:
+        return n_pages <= len(self.free)
+
     def can_accept(self, slot: int, n_pages: int) -> bool:
-        """Whether :meth:`store` would take ``slot``'s pages; checked
-        before ``swap_out`` frees device pages, so a refusal never loses
-        kv."""
-        return int(slot) not in self.slot_pages and n_pages <= len(self.free)
+        """Whether :meth:`store` would take ``slot``'s pages — free pages
+        AND budget headroom — without reserving; checked before
+        ``swap_out`` frees device pages, so a refusal never loses kv."""
+        if int(slot) in self.slot_pages or not self.can_store(n_pages):
+            return False
+        if self.budget is not None and \
+                self.budget.free("dram") < n_pages * self.page_bytes:
+            return False
+        return True
 
     def store(self, slot: int, k, v, n_pages: int) -> bool:
         """Park ``n_pages`` of swap_out's (L, MaxP, PS, ...) buffers for
         ``slot``: the copy to the host happens here."""
         slot, n_pages = int(slot), int(n_pages)
-        if not self.can_accept(slot, n_pages):
+        if slot in self.slot_pages or not self.can_store(n_pages):
+            return False
+        if self.budget is not None and not self.budget.reserve(
+                f"cold:{slot}", n_pages * self.page_bytes):
+            self.budget_refusals += 1
             return False
         kd, vd = _host_bits(k), _host_bits(v)
         ids = [self.free.pop() for _ in range(n_pages)]
@@ -364,14 +397,89 @@ class HostColdTier:
     def drop(self, slot: int, *, restored: bool = False) -> None:
         """Free ``slot``'s host pages (after a restore, or when a cold slot
         is released)."""
-        ids = self.slot_pages.pop(int(slot), None)
+        slot = int(slot)
+        ids = self.slot_pages.pop(slot, None)
         if ids is None:
             return
+        if self.budget is not None:
+            self.budget.release(f"cold:{slot}")
         self.free.extend(ids)
-        if int(slot) in self.order:
-            self.order.remove(int(slot))
+        if slot in self.order:
+            self.order.remove(slot)
         if restored:
             self.restores += 1
+
+    # -- persistence-domain serialization (fault.recovery flush/recover) ----
+
+    def _slabs(self, k: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(k.copy()).view(self.dtype)
+
+    def state_arrays(self) -> dict[str, torch.Tensor]:
+        """Snapshot the tier as fixed-shape CPU tensors (flush payload).
+
+        Variable-length allocator state is padded with -1 sentinels, with
+        list *order preserved* — the free list is a stack popped from the
+        end and ``order`` drives FIFO restore, so recovery must reproduce
+        both exactly for the restarted allocator to stay deterministic."""
+        hp = self.host_pages
+        slot_of = np.full((hp,), -1, np.int64)
+        rank_of = np.zeros((hp,), np.int64)
+        for slot, ids in self.slot_pages.items():
+            for r, p in enumerate(ids):
+                slot_of[p] = slot
+                rank_of[p] = r
+        free = np.full((hp,), -1, np.int64)
+        if self.free:
+            free[: len(self.free)] = np.asarray(self.free, np.int64)
+        order = np.full((hp,), -1, np.int64)
+        if self.order:
+            order[: len(self.order)] = np.asarray(self.order, np.int64)
+        return {
+            "k": self._slabs(self.k),
+            "v": self._slabs(self.v),
+            "slot_of_page": torch.from_numpy(slot_of),
+            "rank_of_page": torch.from_numpy(rank_of),
+            "free_list": torch.from_numpy(free),
+            "order": torch.from_numpy(order),
+            "counters": torch.tensor([self.evictions, self.restores],
+                                     dtype=torch.int64),
+        }
+
+    def zero_arrays(self) -> dict[str, torch.Tensor]:
+        """A zeroed ``state_arrays`` tree — the restore template a fresh
+        process hands to ``checkpoint.restore`` before replay."""
+        hp = self.host_pages
+        z = lambda n: torch.zeros((n,), dtype=torch.int64)  # noqa: E731
+        return {
+            "k": torch.zeros(self.k.shape, dtype=self.dtype),
+            "v": torch.zeros(self.v.shape, dtype=self.dtype),
+            "slot_of_page": z(hp), "rank_of_page": z(hp),
+            "free_list": z(hp), "order": z(hp), "counters": z(2),
+        }
+
+    def restore_arrays(self, arrays) -> None:
+        """Rebuild slabs + allocator from a recovered ``state_arrays`` tree
+        (tensors, or the JAX package's numpy arrays)."""
+        host = {k: _host_bits(v) for k, v in arrays.items()}
+        self.k = np.array(host["k"], dtype=self.k.dtype)
+        self.v = np.array(host["v"], dtype=self.v.dtype)
+        slot_of, rank_of = host["slot_of_page"], host["rank_of_page"]
+        ev, rs = host["counters"]
+        by_slot: dict[int, list[tuple[int, int]]] = {}
+        for p in range(self.host_pages):
+            s = int(slot_of[p])
+            if s >= 0:
+                by_slot.setdefault(s, []).append((int(rank_of[p]), p))
+        self.slot_pages = {
+            s: [p for _r, p in sorted(v)] for s, v in by_slot.items()
+        }
+        self.free = [int(p) for p in host["free_list"] if p >= 0]
+        self.order = [int(s) for s in host["order"] if s >= 0]
+        self.evictions, self.restores = int(ev), int(rs)
+        if self.budget is not None:
+            self.budget.release_prefix("cold:")
+            for s, ids in self.slot_pages.items():
+                self.budget.reserve(f"cold:{s}", len(ids) * self.page_bytes)
 
 
 # ---------------------------------------------------------------------------

@@ -667,3 +667,92 @@ def test_lm_engine_kernels_equal_plain_on_the_card(dev):
     assert torch.equal(a.resp.entries, b.resp.entries)
     torch.testing.assert_close(a.decode.k_pages, b.decode.k_pages,
                                rtol=1e-5, atol=1e-5)
+
+
+# ------------------------- fault and durability ------------------------------
+
+def _failed_over_chain(dev, rng, cfg, batches_live=3, batches_dead=6):
+    """A chain on ``dev`` whose replica 1 died after ``batches_live``
+    batches and missed the next ``batches_dead`` (its log fell behind)."""
+    chain = tx.make_chain(cfg, dev)
+    for i in range(batches_live + batches_dead):
+        if i == batches_live:
+            live = chain.live.clone()
+            live[1] = False
+            chain = chain._replace(live=live)
+        plan = _tx_plan(rng, cfg, 8, dev)
+        chain = tx.chain_commit_apply(chain, plan, kernel_backend="ref")
+    return chain
+
+
+def test_resync_through_the_commit_kernel_equals_plain(dev):
+    """resync_replica replays a revived replica's gap with one commit
+    launch per record; the kernel path and the plain path give the same
+    chain, bit for bit."""
+    from repro_torch.fault import chain as fchain
+
+    cfg = tx.TxConfig(num_keys=64, val_words=4, max_ops=3, chain_len=3,
+                      log_capacity=256)
+    chain = _failed_over_chain(dev, np.random.default_rng(1), cfg)
+    gap = int(chain.log_tail[0]) - int(chain.log_tail[1])
+    assert 0 < gap <= cfg.log_capacity
+    out = {}
+    for backend in ("cuda", "ref"):
+        copy = tx.ReplicaState(*(x.clone() for x in chain))
+        tc.reset_launches()
+        out[backend] = fchain.resync_replica(copy, cfg, 1,
+                                             kernel_backend=backend)
+        torch.cuda.synchronize()
+        launches = dict(tc.launches)
+        assert launches["commit"] == (gap if backend == "cuda" else 0)
+    _same(out["ref"], out["cuda"], "resync cuda vs ref")
+    assert bool(out["cuda"].live.all())
+    for f in ("store", "log", "log_tail", "committed"):
+        assert torch.equal(getattr(out["cuda"], f)[1],
+                           getattr(out["cuda"], f)[0]), f
+
+
+def test_recover_through_the_commit_kernel_equals_plain(dev, tmp_path):
+    """A TX engine's snapshot + WAL deltas recovered on the card: the
+    replay launches the commit kernel once per redo record and gives the
+    state the plain replay gives, which is the live state at the flush."""
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.fault import recovery as frec
+
+    cfg = tx.TxConfig(num_keys=64, val_words=4, max_ops=3, chain_len=3,
+                      log_capacity=256)
+    w = tx_app.request_words(cfg)
+    ecfg = eng.EngineConfig(num_queues=4, capacity=16, req_words=w,
+                            resp_words=w, budget=8, kernel_backend="cuda")
+    app = eng.bind_app(tx_app.app_step, cfg, ecfg)
+    state = eng.make(ecfg, tx.make_chain(cfg, dev))
+    mgr = frec.DurabilityManager(frec.DurabilityConfig(
+        str(tmp_path), mode="delta", snapshot_every=1000, group_records=2))
+    rng = np.random.default_rng(2)
+    for step in range(8):
+        pays = np.zeros((4, w), np.int32)
+        pays[:, 0] = rng.integers(1, cfg.max_ops + 1, 4)
+        ops = pays[:, 1:].reshape(4, cfg.max_ops, 1 + cfg.val_words)
+        ops[..., 0] = rng.integers(0, cfg.num_keys, (4, cfg.max_ops))
+        ops[..., 1:] = rng.integers(1, 999, (4, cfg.max_ops, cfg.val_words))
+        pays[:, 1:] = ops.reshape(4, -1)
+        state = eng.inject(state, np.arange(4, dtype=np.int32), pays)
+        state, _ = eng.engine_step(state, app, ecfg)
+        mgr.flush(state)
+        flushed = checkpointer.host_copy(state)
+        _, _, state = eng.drain_responses(state, ecfg.capacity)
+    mgr.wait()
+    out = {}
+    for backend in ("cuda", "ref"):
+        like = eng.make(ecfg, tx.make_chain(cfg, dev))
+        stats = {}
+        tc.reset_launches()
+        out[backend], covered = frec.recover(str(tmp_path), like,
+                                             kernel_backend=backend,
+                                             stats=stats)
+        torch.cuda.synchronize()
+        assert covered == 8 and stats["tx_records"] > 0
+        assert tc.launches["commit"] == (
+            stats["tx_records"] if backend == "cuda" else 0)
+    _same(out["ref"], out["cuda"], "recover cuda vs ref")
+    _same(flushed, out["cuda"], "recovered vs the last flush")
