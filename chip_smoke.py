@@ -27,7 +27,9 @@ Phases, each printing one JSON line:
 5. tx_kernels   — commit and commit_chain against their plain versions on
                   a chain of 3 replicas of 2^24 64-B rows and a 2^18-record
                   log, 256 planned transactions with conflicts, duplicates,
-                  skewed tails and a dead replica;
+                  skewed tails and a dead replica, and commit at B = 1 on a
+                  record planned as log replay plans it; the share of
+                  targets that are sentinels;
 6. tx_serve     — 200 TX engine steps at budget 256 (1-8 write ops, zipf
                   0.99 offsets, 0.5% MALFORMED, clients retry DEFERRED)
                   through an ``auto`` and a ``ref`` engine: equal responses
@@ -420,7 +422,8 @@ def clone_state(st):
     return type(st)(*(t.clone() for t in st))
 
 
-PTXAS_SOURCES = ("flash_attention", "paged_attention", "embedding_reduce")
+PTXAS_SOURCES = ("flash_attention", "paged_attention", "embedding_reduce",
+                 "tx_commit")
 
 
 def ptxas_usage(build, names=PTXAS_SOURCES):
@@ -449,7 +452,8 @@ def ptxas_usage(build, names=PTXAS_SOURCES):
         for line in stderr.splitlines():
             m = re.search(r"Compiling entry function '.*?(flash_wgmma_kernel|"
                           r"flash_kernel|paged_mma_kernel|paged_stats_kernel|"
-                          r"embedding_reduce_kernel)I(\w*?)E[EvP]", line)
+                          r"embedding_reduce_kernel|commit_kernel)I(\w*?)"
+                          r"E[EvP]", line)
             if m:
                 args = (m.group(2).replace("13__nv_bfloat16Li", "bf16,")
                         .replace("fLi", "f32,").replace("Li", ""))
@@ -467,6 +471,25 @@ def ptxas_usage(build, names=PTXAS_SOURCES):
     return usage
 
 
+def sass_scan(build, library):
+    """What ``cuobjdump -sass`` shows of a built kernel library: its
+    kernels, its instructions and its CALL instructions. nvcc inlines a
+    32-bit integer division and compiles a 64-bit one (and its remainder)
+    to a called subroutine, so a kernel that calls nothing else divides in
+    64 bits nowhere."""
+    import re
+
+    tool = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    return {
+        "kernels": sorted(set(re.findall(r"Function : (\S+)", sass))),
+        "instructions": len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/", sass,
+                                       re.M)),
+        "calls": len(re.findall(r"\bCALL\.", sass)),
+    }
+
+
 def phase_device(torch, build):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -477,10 +500,14 @@ def phase_device(torch, build):
     t0 = time.perf_counter()
     build.build(build.sources())
     build_s = time.perf_counter() - t0
+    sass = sass_scan(build, build.library_path("tx_commit"))
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0), "build_s": build_s,
-          "ptxas": ptxas_usage(build)})
+          "ptxas": ptxas_usage(build), "tx_commit_sass": sass})
+    if sass["calls"]:
+        raise AssertionError(f"tx_commit: {sass['calls']} CALL instructions "
+                             "in its SASS (a 64-bit division routine)")
     return smi
 
 
@@ -870,10 +897,14 @@ def tx_stream(torch, cfg, n, g, malformed=TX_MALFORMED):
     return records.to(torch.int32).contiguous(), bad
 
 
-def phase_tx_kernels(torch, tx, tc, ref, cfg):
-    """commit_chain and commit against their plain versions on the engine's
-    shapes: 256 planned transactions on a chain with random contents,
-    skewed log tails (slots wrap the ring) and a dead replica."""
+def tx_kernel_inputs(torch, tx, cfg):
+    """The commit kernels' inputs at the engine's shapes: a chain with
+    random contents, skewed log tails (slots wrap the ring) and a dead
+    replica (1); 256 planned transactions with conflicts and duplicates
+    and their per-replica targets; and one of them re-planned as
+    ``replay_records`` plans a record (proceed forced, B = 1) with its
+    targets on replica 0. Returns (chain, batch, mask, plan, slot, rows,
+    record plan, record slot, record rows)."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 3)
     chain = tx.make_chain(cfg, device="cuda")
     chain.store.random_(-2**30, 2**30, generator=g)
@@ -890,6 +921,34 @@ def phase_tx_kernels(torch, tx, tc, ref, cfg):
     mask = torch.rand((BATCH,), generator=g, device="cuda") > 0.05
     plan = tx.plan_commit(batch, cfg, mask)
     slot, rows = tx.commit_targets(chain, plan)
+    first = int(plan.proceed.nonzero()[0, 0])
+    rplan = tx.plan_commit(batch[first:first + 1], cfg, proceed=torch.ones(
+        (1,), dtype=torch.bool, device="cuda"))
+    rep0 = tx.ReplicaState(*(x[0] for x in chain))
+    rslot, rrows = tx.commit_targets(rep0, rplan)
+    return chain, batch, mask, plan, slot, rows, rplan, rslot, rrows
+
+
+def tx_commit_bytes(cfg, batch, values, slot, rows):
+    """The bytes a commit must move: each input read once, each live row
+    written once (a sentinel row is zeroed at most once, and is already
+    zero in these states)."""
+    b, tw = batch.shape
+    live_slots = int((slot < cfg.log_capacity).sum())
+    live_rows = int((rows < cfg.num_keys).sum())
+    return ((batch.numel() + values.numel() + slot.numel() + rows.numel())
+            * 4 + live_slots * tw * 4 + live_rows * cfg.val_words * 4)
+
+
+def phase_tx_kernels(torch, tx, tc, ref, cfg):
+    """commit_chain and commit against their plain versions on the engine's
+    shapes: 256 planned transactions on a chain with random contents,
+    skewed log tails (slots wrap the ring) and a dead replica; and commit
+    at its main-path shape, one replayed record (B = 1). Returns the
+    entries of the ``kernels`` line (commit at B = 256)."""
+    (chain, batch, mask, plan, slot, rows, rplan, rslot,
+     rrows) = tx_kernel_inputs(torch, tx, cfg)
+    lc, nk = cfg.log_capacity, cfg.num_keys
     # the O(num_keys) part of every TX step: first-claimant concurrency
     # control fills and scatters an owner table of NK + 1 entries
     n_ops, offs, _ = tx.parse_tx(batch, cfg)
@@ -909,47 +968,53 @@ def phase_tx_kernels(torch, tx, tc, ref, cfg):
     log_p, store_p = chain.log.clone(), chain.store.clone()
     tc.commit_chain(log_k, store_k, *args)
     ref.tx_commit_chain(log_p, store_p, *args)
-    tw, vw, m = batch.shape[1], cfg.val_words, cfg.max_ops
-    live_slots = int((slot < lc).sum())
-    live_rows = int((rows < cfg.num_keys).sum())
-    # each input read once, each live row written once (sentinel writes
-    # rewrite zeros that are already there)
-    payload = BATCH * tw * 4 + BATCH * m * vw * 4
-    nbytes = (payload + slot.numel() * 4 + rows.numel() * 4
-              + live_slots * tw * 4 + live_rows * vw * 4)
     entries["commit_chain"] = kernel_entry(
         torch, "commit_chain", (log_k, store_k), (log_p, store_p),
         lambda: tc.commit_chain(log_k, store_k, *args),
-        lambda: ref.tx_commit_chain(log_p, store_p, *args), nbytes, BATCH)
+        lambda: ref.tx_commit_chain(log_p, store_p, *args),
+        tx_commit_bytes(cfg, plan.batch, plan.values, slot, rows), BATCH)
     dead_kept = (torch.equal(store_k[1], chain.store[1])
                  and torch.equal(log_k[1], chain.log[1]))
     del log_k, store_k, log_p, store_p
 
-    one = (plan.batch, plan.values, slot[0].contiguous(), rows[0].contiguous())
     log_k, store_k = chain.log[0].clone(), chain.store[0].clone()
     log_p, store_p = chain.log[0].clone(), chain.store[0].clone()
-    tc.commit(log_k, store_k, *one)
-    ref.tx_commit(log_p, store_p, *one)
-    live_slots0 = int((slot[0] < lc).sum())
-    live_rows0 = int((rows[0] < cfg.num_keys).sum())
-    nbytes = (payload + BATCH * 4 + BATCH * m * 4 + live_slots0 * tw * 4
-              + live_rows0 * vw * 4)
-    entries["commit"] = kernel_entry(
-        torch, "commit", (log_k, store_k), (log_p, store_p),
-        lambda: tc.commit(log_k, store_k, *one),
-        lambda: ref.tx_commit(log_p, store_p, *one), nbytes, BATCH)
+    for name, a, b in (
+            ("commit", (plan.batch, plan.values, slot[0].contiguous(),
+                        rows[0].contiguous()), BATCH),
+            ("commit_b1", (rplan.batch, rplan.values, rslot, rrows), 1)):
+        for t in (log_k, log_p):
+            t.copy_(chain.log[0])
+        for t in (store_k, store_p):
+            t.copy_(chain.store[0])
+        tc.commit(log_k, store_k, *a)
+        ref.tx_commit(log_p, store_p, *a)
+        entries[name] = kernel_entry(
+            torch, "commit", (log_k, store_k), (log_p, store_p),
+            lambda a=a: tc.commit(log_k, store_k, *a),
+            lambda a=a: ref.tx_commit(log_p, store_p, *a),
+            tx_commit_bytes(cfg, *a), b)
     del log_k, store_k, log_p, store_p, chain
     torch.cuda.empty_cache()
+    tw, vw = batch.shape[1], cfg.val_words
+    dead_slots, dead_rows = int((slot == lc).sum()), int((rows == nk).sum())
     emit({"phase": "tx_kernels", "results": entry_summary(entries),
           "proceeding": int(plan.proceed.sum()), "deferred_or_masked":
-          int((~plan.proceed).sum()), "live_log_slots": live_slots,
-          "live_store_rows": live_rows, "dead_replica_untouched": dead_kept,
-          "chain_gb": cfg.chain_len * ((cfg.num_keys + 1) * vw
-                                       + (lc + 1) * tw) * 4 / 1e9,
-          "concurrency_control": concurrency})
+          int((~plan.proceed).sum()), "live_log_slots": int((slot < lc).sum()),
+          "live_store_rows": int((rows < nk).sum()),
+          "sentinel_share": {"log": dead_slots / slot.numel(),
+                             "store": dead_rows / rows.numel(),
+                             "b1_store": int((rrows == nk).sum())
+                             / rrows.numel()},
+          # what one store per word of each sentinel target would write
+          "sentinel_target_words": dead_slots * tw + dead_rows * vw,
+          "dead_replica_untouched": dead_kept,
+          "chain_gb": cfg.chain_len * ((nk + 1) * vw + (lc + 1) * tw) * 4
+          / 1e9, "concurrency_control": concurrency})
     check_entries(entries, "tx_kernels")
     if not dead_kept:
         raise AssertionError("tx_kernels: the dead replica was written")
+    del entries["commit_b1"]
     return entries
 
 

@@ -24,6 +24,10 @@ from repro_torch.kernels import hash_probe as hp
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref
 from repro_torch.kernels import tx_commit as tc
+from tx_commit_cases import CASES as TX_CASES
+from tx_commit_cases import IN_RANGE as TX_IN_RANGE
+from tx_commit_cases import edge_case as tx_edge_case
+from tx_commit_cases import plain_dropping_out_of_range, replica, to_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -182,12 +186,16 @@ def _tx_plan(rng, cfg, b, dev):
 
 
 @pytest.mark.parametrize("shape", [(16, 2, 3, 3, 4), (300, 16, 8, 3, 64),
-                                   (64, 33, 5, 1, 8)])
+                                   (64, 33, 5, 1, 8), (40, 3, 4, 3, 16),
+                                   (64, 40, 4, 3, 8)])
 @pytest.mark.parametrize("b", [1, 7, 300])
 def test_tx_kernels_match_plain_versions(dev, shape, b):
     """commit and commit_chain against their plain versions: random
     sentinel-resident states, skewed tails (so slots lap the ring), a
-    dead replica, shared and per-replica rows."""
+    dead replica, shared and per-replica rows. VW = 2, 3 and 33 rule out
+    16-byte stores; at VW = 40 the sentinel rows of three replicas
+    outnumber a CTA's threads, so they are zeroed after the targets are
+    read."""
     nk, vw, m, r, lc = shape
     cfg = tx.TxConfig(num_keys=nk, val_words=vw, max_ops=m, chain_len=r,
                       log_capacity=lc)
@@ -225,6 +233,69 @@ def test_tx_kernels_match_plain_versions(dev, shape, b):
                             kernel_backend="cuda")
     torch.cuda.synchronize()
     _same(want, got, "commit")
+
+
+@pytest.mark.parametrize("vw", [3, 16])
+@pytest.mark.parametrize("kernel", ["commit", "commit_chain_shared",
+                                    "commit_chain_per_replica"])
+@pytest.mark.parametrize("case", TX_CASES)
+def test_tx_kernels_edge_cases_match_plain_versions(dev, case, kernel, vw):
+    """commit (R = 1) and commit_chain (R = 3, shared or per-replica rows)
+    against their plain versions on sentinel rows that are not zero on
+    entry (aimed at, not aimed at, every target a sentinel) and on targets
+    outside [0, LC] and [0, NK], which the kernel skips (the plain version
+    then runs on the targets in range). VW = 3 rules out 16-byte stores;
+    VW = 16 is the engine's width (TW = 137)."""
+    c = tx_edge_case(case, seed=vw + len(kernel), r=3, b=40, m=8, vw=vw,
+                     lc=64, nk=1024, shared_rows=kernel.endswith("shared"))
+    if kernel == "commit":
+        c = replica(c)
+    names = ("log", "store", "batch", "values", "slot", "rows")
+    want_args = [to_torch(c)[k] for k in names]
+    got_args = [to_torch(c, dev)[k] for k in names]
+    if case not in TX_IN_RANGE:
+        plain = plain_dropping_out_of_range
+    elif kernel == "commit":
+        plain = ref.tx_commit
+    else:
+        plain = ref.tx_commit_chain
+    want = plain(*want_args)
+    got = (tc.commit if kernel == "commit" else tc.commit_chain)(*got_args)
+    torch.cuda.synchronize()
+    _same(want, got, f"{kernel} {case} vw={vw}")
+
+
+@pytest.mark.parametrize("vw", [3, 16])
+def test_tx_commit_at_the_replay_shape(dev, vw):
+    """One record a launch, proceed forced (``replay_records``' plan), at
+    B = 1 into a replica whose store sentinel row is not zero on entry:
+    the kernel's replica equals the plain version's after each record."""
+    cfg = tx.TxConfig(num_keys=512, val_words=vw, max_ops=8, chain_len=1,
+                      log_capacity=16)
+    rng = np.random.default_rng(vw)
+    w = tx.tx_words(cfg)
+    records = np.zeros((20, w), np.int32)
+    records[:, 0] = rng.integers(1, cfg.max_ops + 1, 20)
+    ops = records[:, 1:].reshape(20, cfg.max_ops, 1 + vw)
+    ops[..., 0] = rng.integers(0, 40, (20, cfg.max_ops))  # duplicates
+    ops[..., 1:] = rng.integers(-999, 999, (20, cfg.max_ops, vw))
+    records[:, 1:] = ops.reshape(20, -1)
+    rep = tx.make_replica(cfg, device="cpu")
+    rep.store.copy_(_i32(rng, -99, 99, rep.store.shape))
+    rep.log.copy_(_i32(rng, -99, 99, rep.log.shape))
+    rep.log[-1] = 0
+    want, got = rep, tx.ReplicaState(*(x.to(dev) for x in rep))
+    one = torch.ones((1,), dtype=torch.bool)
+    tc.reset_launches()
+    for rec in torch.from_numpy(records):
+        plan = tx.plan_commit(rec[None], cfg, proceed=one)
+        want = tx.replica_commit(want, plan, kernel_backend="ref")
+        plan = type(plan)(*(x.to(dev) for x in plan))
+        got = tx.replica_commit(got, plan, kernel_backend="cuda")
+        torch.cuda.synchronize()
+        _same(want, got, "replayed record")
+    assert tc.launches["commit"] == 20
+    assert not want.store[-1].any()
 
 
 def test_tx_wrappers_reject_bad_tensors(dev):

@@ -26,6 +26,7 @@ from repro_torch.core import transaction as ttx
 from repro_torch.core import tx_app as tapp
 from repro_torch.kernels import ops as tops
 from torch_port_helpers import assert_same, t
+from tx_commit_cases import IN_RANGE, edge_case, replica
 
 I32 = jnp.int32
 # the JAX side runs jitted where it loops (eager JAX dispatch dominates)
@@ -137,6 +138,50 @@ def test_tx_commit_chain_plain_matches_pallas(rows_kind, dead):
     if dead is not None and rows_kind == "per_replica":
         assert_same(chain.store[dead], store[dead], "dead replica store")
         assert_same(chain.log[dead], log[dead], "dead replica log")
+
+
+@pytest.mark.parametrize("case", IN_RANGE)
+@pytest.mark.parametrize("kernel", ["commit", "commit_chain_shared",
+                                    "commit_chain_per_replica"])
+def test_tx_commit_sentinel_rows_match_pallas(case, kernel):
+    """The plain versions against the Pallas kernels in interpret mode on
+    sentinel rows that are NOT zero on entry: a sentinel row that some
+    target aims at ends all-zero, one that no target aims at keeps its
+    contents, and an all-deferred batch (every target a sentinel) writes
+    nothing else. These pin what the CUDA kernel keeps."""
+    chain = kernel != "commit"
+    lc, nk = 8, 24
+    c = edge_case(case, seed=len(case) + len(kernel), r=3 if chain else 1,
+                  b=6, m=3, vw=4, lc=lc, nk=nk,
+                  shared_rows=kernel.endswith("shared"))
+    if chain:
+        args = [c[k] for k in ("log", "store", "batch", "values", "slot",
+                               "rows")]
+        want = jtc.commit_chain(*map(jnp.asarray, args), interpret=True)
+        got = tops.tx_commit_chain(*map(t, args))
+    else:
+        c = replica(c)
+        args = [c[k] for k in ("log", "store", "batch", "values", "slot",
+                               "rows")]
+        want = jtc.commit(*map(jnp.asarray, args), interpret=True)
+        got = tops.tx_commit(*map(t, args))
+    assert_same(want, got, f"{kernel} {case}")
+    log, store = (x.numpy().reshape((-1,) + x.shape[-2:]) for x in got)
+    slot = c["slot"].reshape(log.shape[0], -1)
+    rows = np.broadcast_to(c["rows"], (log.shape[0], c["rows"].shape[-1]))
+    entry_log = c["log"].reshape(log.shape)
+    entry_store = c["store"].reshape(store.shape)
+    for k in range(log.shape[0]):
+        for now, entry, tgt, lim in ((log, entry_log, slot, lc),
+                                     (store, entry_store, rows, nk)):
+            if (tgt[k] == lim).any():
+                assert not now[k, lim].any()
+            else:
+                assert entry[k, lim].all()
+                np.testing.assert_array_equal(now[k, lim], entry[k, lim])
+    if case == "all_deferred":
+        np.testing.assert_array_equal(log[:, :lc], entry_log[:, :lc])
+        np.testing.assert_array_equal(store[:, :nk], entry_store[:, :nk])
 
 
 # ------------------------------ modules -------------------------------------
