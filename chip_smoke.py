@@ -13,12 +13,14 @@ LM paths, and holds every kernel against its plain PyTorch version.
 Phases, each printing one JSON line:
 
 1. device       — the card's name and power limit (nvidia-smi), the build,
-                  and the launch floor: a one-element PyTorch kernel's
-                  device time;
+                  ptxas usage and SASS scans (no CALL in the TX commit or
+                  the lookups, no spill in the lookups), and the launch
+                  floor: a one-element PyTorch kernel's device time;
 2. load         — 2^26 distinct keys PUT into a store of 2^24 buckets x 8
                   ways and 2^27 64-B values behind a 65,536 x 4 cache;
 3. kernels      — each KVS kernel against its plain version at the
-                  engine's batch (256 requests on the loaded store);
+                  engine's batch (256 requests on the loaded store), and
+                  probe and cache_probe also at the load phase's 65,536;
 4. serve        — 200 KVS engine steps at budget 256 (95% GET / 5% PUT,
                   zipf 0.99 keys, 1% absent) through two engines, ``auto``
                   (the kernels) and ``ref`` (the plain versions on the
@@ -423,7 +425,10 @@ def clone_state(st):
 
 
 PTXAS_SOURCES = ("flash_attention", "paged_attention", "embedding_reduce",
-                 "tx_commit")
+                 "tx_commit", "hash_probe")
+# the lookups redesigned to wait on one dependent round trip: their SASS
+# must call nothing (no 64-bit division routine) and ptxas must spill none
+LOOKUP_KERNELS = ("probe_kernel", "cache_probe_kernel")
 
 
 def ptxas_usage(build, names=PTXAS_SOURCES):
@@ -450,14 +455,9 @@ def ptxas_usage(build, names=PTXAS_SOURCES):
         if proc.returncode:
             raise RuntimeError(f"nvcc -Xptxas -v failed:\n{stderr}{stdout}")
         for line in stderr.splitlines():
-            m = re.search(r"Compiling entry function '.*?(flash_wgmma_kernel|"
-                          r"flash_kernel|paged_mma_kernel|paged_stats_kernel|"
-                          r"embedding_reduce_kernel|commit_kernel)I(\w*?)"
-                          r"E[EvP]", line)
+            m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                args = (m.group(2).replace("13__nv_bfloat16Li", "bf16,")
-                        .replace("fLi", "f32,").replace("Li", ""))
-                kernel = f"{m.group(1)}<{args}>"
+                kernel = kernel_name(m.group(1))
                 usage[kernel] = {}
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
                           r" (\d+) bytes spill loads", line)
@@ -471,22 +471,61 @@ def ptxas_usage(build, names=PTXAS_SOURCES):
     return usage
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel of ``csrc/`` (its template
+    arguments as numbers, bf16 or f32), the mangled name where it is not
+    one. The name is the shortest <length><identifier> that ends in
+    ``_kernel``: nvcc's namespace for a file is a hash of its path, whose
+    digits can spell a longer one by chance."""
+    import re
+
+    found = []
+    for m in re.finditer(r"\d", mangled):
+        for k in (1, 2):
+            digits = mangled[m.start():m.start() + k]
+            at = m.start() + k
+            name = mangled[at:at + int(digits)] if digits.isdigit() else ""
+            if name.endswith("_kernel") and name.isidentifier() and \
+                    len(name) == int(digits):
+                found.append((len(name), at, name))
+    if not found:
+        return mangled
+    _, at, name = min(found)
+    t = re.match(r"I(\w*?)E[EvP]", mangled[at + len(name):])
+    if t is None:
+        return name
+    args = (t.group(1).replace("13__nv_bfloat16Li", "bf16,")
+            .replace("fLi", "f32,").replace("Li", "").replace("E", ","))
+    return f"{name}<{args}>"
+
+
 def sass_scan(build, library):
     """What ``cuobjdump -sass`` shows of a built kernel library: its
-    kernels, its instructions and its CALL instructions. nvcc inlines a
-    32-bit integer division and compiles a 64-bit one (and its remainder)
-    to a called subroutine, so a kernel that calls nothing else divides in
-    64 bits nowhere."""
+    kernels, its instructions and its CALL instructions, in all and for
+    each kernel (with its global loads, LDG). nvcc inlines a 32-bit
+    integer division and compiles a 64-bit one (and its remainder) to a
+    called subroutine, so a kernel that calls nothing else divides in 64
+    bits nowhere."""
     import re
 
     tool = Path(build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(library)], check=True,
                           capture_output=True, text=True).stdout
+    parts = re.split(r"Function : (\S+)", sass)
+    functions = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        functions[kernel_name(name)] = {
+            "instructions": len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/", body,
+                                           re.M)),
+            "calls": len(re.findall(r"\bCALL\.", body)),
+            "global_loads": len(re.findall(r"\bLDG\.", body)),
+        }
     return {
-        "kernels": sorted(set(re.findall(r"Function : (\S+)", sass))),
+        "kernels": sorted(set(parts[1::2])),
         "instructions": len(re.findall(r"^\s+/\*[0-9a-f]{4}\*/", sass,
                                        re.M)),
         "calls": len(re.findall(r"\bCALL\.", sass)),
+        "functions": functions,
     }
 
 
@@ -501,13 +540,29 @@ def phase_device(torch, build):
     build.build(build.sources())
     build_s = time.perf_counter() - t0
     sass = sass_scan(build, build.library_path("tx_commit"))
+    hp_sass = sass_scan(build, build.library_path("hash_probe"))
+    ptxas = ptxas_usage(build)
     emit({"phase": "device", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "kind": torch.cuda.get_device_name(0), "build_s": build_s,
-          "ptxas": ptxas_usage(build), "tx_commit_sass": sass})
+          "ptxas": ptxas, "tx_commit_sass": sass,
+          "hash_probe_sass": hp_sass})
     if sass["calls"]:
         raise AssertionError(f"tx_commit: {sass['calls']} CALL instructions "
                              "in its SASS (a 64-bit division routine)")
+
+    def lookup(name):
+        return name.split("<")[0] in LOOKUP_KERNELS
+
+    calls = {k: v["calls"] for k, v in hp_sass["functions"].items()
+             if lookup(k)}
+    if len(calls) != 4 or any(calls.values()):
+        raise AssertionError(f"hash_probe: CALL instructions in the lookup "
+                             f"kernels' SASS (or instances missing): {calls}")
+    spills = {k: v for k, v in ptxas.items() if lookup(k)
+              and (v.get("spill_stores") or v.get("spill_loads"))}
+    if spills:
+        raise AssertionError(f"hash_probe: the lookups spill: {spills}")
     return smi
 
 
@@ -533,6 +588,7 @@ def phase_load(torch, kv, hp):
     state = kv.make(cfg, device="cuda")
     stored = torch.zeros((N_KEYS,), dtype=torch.bool, device="cuda")
     torch.cuda.synchronize()
+    hp.reset_launches()
     t0 = time.perf_counter()
     for start in range(0, N_KEYS, FILL_BATCH):
         idx = torch.arange(start, start + FILL_BATCH, device="cuda")
@@ -552,24 +608,52 @@ def phase_load(torch, kv, hp):
     if out["ok"] + out["dropped"] != N_KEYS:
         raise AssertionError(f"load: {out['ok']} ok + {out['dropped']} "
                              f"dropped != {N_KEYS}")
-    return cfg, state, stored.cpu().numpy()
+    return cfg, state, stored.cpu().numpy(), out["launches"]
 
 
-def phase_kernels(torch, kv, hp, ref, cfg, state):
-    """Each kernel against its plain version at the engine's batch."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+def kvs_lookups(torch, kv, state, batch, g):
+    """A GET mix of ``batch`` keys on the loaded store: a quarter recently
+    loaded (likely cached), a quarter absent, the rest random loaded keys.
+    Returns (keys, h1, h2, cset, (recent, loaded, absent) key indices)."""
     dev = "cuda"
-    # GET mix: recently loaded (likely cached), random loaded, absent
-    recent = N_KEYS - 1 - torch.randint(0, FILL_BATCH, (BATCH // 4,),
+    n_recent = n_absent = batch // 4
+    recent = N_KEYS - 1 - torch.randint(0, FILL_BATCH, (n_recent,),
                                         generator=g, device=dev)
-    loaded = torch.randint(0, N_KEYS, (BATCH // 2,), generator=g, device=dev)
-    absent = N_KEYS + torch.randint(0, N_KEYS, (BATCH // 4,), generator=g,
+    loaded = torch.randint(0, N_KEYS, (batch - n_recent - n_absent,),
+                           generator=g, device=dev)
+    absent = N_KEYS + torch.randint(0, N_KEYS, (n_absent,), generator=g,
                                     device=dev)
     keys = key_words(torch.cat([recent, loaded, absent]), torch)
-    nb, np_ = state.num_buckets, state.pool_size
+    nb = state.num_buckets
     h1 = kv.hash_keys(keys, nb)
     h2 = kv.hash_keys(keys, nb, salt=kv.OVERFLOW_SALT)
     cset = kv.hash_keys(keys, state.cache_sets, salt=kv.CACHE_SALT)
+    return keys, h1, h2, cset, (recent, loaded, absent)
+
+
+def probe_bytes(cfg, batch):
+    """What ``probe`` must move: the query and both ids read, both buckets'
+    key words and pointers read, found and ptr written."""
+    kw, w = cfg.key_words, cfg.ways
+    return batch * (kw * 4 + 8 + 2 * w * (kw + 1) * 4 + 1 + 4)
+
+
+def cache_probe_bytes(cfg, batch):
+    """What ``cache_probe`` must move: the query and the set id read, the
+    set's keys and meta read, one value line read and written, hit and way
+    written."""
+    kw, vw, cw = cfg.key_words, cfg.val_words, cfg.cache_ways
+    return batch * (kw * 4 + 4 + cw * (kw + 1) * 4 + 2 * vw * 4 + 5)
+
+
+def phase_kernels(torch, kv, hp, ref, cfg, state):
+    """Each kernel against its plain version at the engine's batch, and the
+    two lookups also at the load phase's."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dev = "cuda"
+    keys, h1, h2, cset, (recent, loaded, absent) = kvs_lookups(
+        torch, kv, state, BATCH, g)
+    np_ = state.pool_size
 
     # a planned PUT batch: updates, inserts, in-batch duplicates and
     # masked rows (the last two aim at the sentinel rows)
@@ -583,20 +667,32 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
 
     entries = {}
 
-    def record(name, outs_k, outs_p, k_fn, p_fn, nbytes, lib_fn=None):
-        entries[name] = kernel_entry(torch, name, outs_k, outs_p, k_fn, p_fn,
-                                     nbytes, BATCH, lib_fn)
+    def record(name, outs_k, outs_p, k_fn, p_fn, nbytes, lib_fn=None,
+               batch=BATCH):
+        entries[name] = kernel_entry(torch, name.split("@")[0], outs_k,
+                                     outs_p, k_fn, p_fn, nbytes, batch,
+                                     lib_fn)
 
-    kw, vw, w = cfg.key_words, cfg.val_words, cfg.ways
-    cw = cfg.cache_ways
-    found_k, ptr_k = hp.probe(state.bucket_keys, state.bucket_ptr, keys, h1, h2)
-    found_p, ptr_p = ref.hash_probe(state.bucket_keys, state.bucket_ptr, keys,
-                                    h1, h2)
-    record("probe", (found_k, ptr_k), (found_p, ptr_p),
-           lambda: hp.probe(state.bucket_keys, state.bucket_ptr, keys, h1, h2),
-           lambda: ref.hash_probe(state.bucket_keys, state.bucket_ptr, keys,
-                                  h1, h2),
-           BATCH * (kw * 4 + 8 + 2 * w * (kw + 1) * 4 + 1 + 4))
+    kw, vw = cfg.key_words, cfg.val_words
+
+    def lookups(keys, h1, h2, cset, batch, tag=""):
+        bk, bp = state.bucket_keys, state.bucket_ptr
+        found_p, ptr_p = ref.hash_probe(bk, bp, keys, h1, h2)
+        record("probe" + tag, hp.probe(bk, bp, keys, h1, h2),
+               (found_p, ptr_p), lambda: hp.probe(bk, bp, keys, h1, h2),
+               lambda: ref.hash_probe(bk, bp, keys, h1, h2),
+               probe_bytes(cfg, batch), batch=batch)
+        ck, cv, cm = state.cache_keys, state.cache_vals, state.cache_meta
+        outs_p = ref.cache_probe(ck, cv, cm, keys, cset)
+        record("cache_probe" + tag, hp.cache_probe(ck, cv, cm, keys, cset),
+               outs_p, lambda: hp.cache_probe(ck, cv, cm, keys, cset),
+               lambda: ref.cache_probe(ck, cv, cm, keys, cset),
+               cache_probe_bytes(cfg, batch), batch=batch)
+        entries["cache_probe" + tag]["hits"] = int(outs_p[0].sum())
+        entries["probe" + tag]["found"] = int(found_p.sum())
+        return found_p, ptr_p
+
+    found_p, ptr_p = lookups(keys, h1, h2, cset, BATCH)
 
     ptr = torch.where(found_p, torch.clamp(ptr_p, 0, np_), np_).to(torch.int32)
     ptr64 = ptr.to(torch.int64)
@@ -605,16 +701,6 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
            lambda: ref.fetch(state.pool, ptr),
            BATCH * (4 + 2 * vw * 4),
            lambda: torch.index_select(state.pool, 0, ptr64))
-
-    ck, cv, cm = state.cache_keys, state.cache_vals, state.cache_meta
-    outs_k = hp.cache_probe(ck, cv, cm, keys, cset)
-    outs_p = ref.cache_probe(ck, cv, cm, keys, cset)
-    record("cache_probe", outs_k, outs_p,
-           lambda: hp.cache_probe(ck, cv, cm, keys, cset),
-           lambda: ref.cache_probe(ck, cv, cm, keys, cset),
-           BATCH * (kw * 4 + 4 + cw * (kw + 1) * 4 + 2 * vw * 4 + 5))
-    entries["cache_probe"]["hits"] = int(outs_p[0].sum())
-    entries["probe"]["found"] = int(found_p.sum())
 
     # the commits, each applied to its own clone of the state arrays
     bk_k, bp_k = state.bucket_keys.clone(), state.bucket_ptr.clone()
@@ -641,9 +727,15 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
     del pool_k, pool_p
     torch.cuda.empty_cache()
 
+    # the lookups at the load phase's batch (a PUT plan's probe, the write-
+    # through's cache_probe), on inputs of their own
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    lookups(*kvs_lookups(torch, kv, state, FILL_BATCH, g)[:4], FILL_BATCH,
+            f"@{FILL_BATCH}")
+
     emit({"phase": "kernels_vs_plain", "results": entry_summary(entries)})
     check_entries(entries, "kernels_vs_plain")
-    return entries
+    return {k: v for k, v in entries.items() if "@" not in k}
 
 
 def zipf_ranks(torch, g, n_items, n):
@@ -2247,11 +2339,11 @@ def main() -> int:
     phase_launch_floor(torch, smi)
 
     # KVS: the store (10.2 GB) is freed before the next path
-    cfg, state, stored = phase_load(torch, kv, hp)
+    cfg, state, stored, load_launches = phase_load(torch, kv, hp)
     entries = phase_kernels(torch, kv, hp, ref, cfg, state)
     launches = phase_serve(torch, np, eng, kv, hp, cfg, state, stored, smi)
     for name, e in entries.items():
-        e["launches"] = launches[name]
+        e["launches"] = launches[name] + load_launches[name]
     del state
     torch.cuda.empty_cache()
 

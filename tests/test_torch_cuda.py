@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+import hash_probe_cases as hpc
 from embedding_cases import COPY_BYTES, WIDTHS, edge_case, \
     plain_with_zero_rows
+from hash_probe_cases import SHAPES
 from repro_torch import interop
 from repro_torch.core import dlrm
 from repro_torch.core import engine as eng
@@ -31,9 +33,9 @@ from tx_commit_cases import plain_dropping_out_of_range, replica, to_torch
 
 pytestmark = pytest.mark.cuda
 
-# (num_buckets, ways, key_words, pool_size, val_words)
-SHAPES = [(8, 2, 2, 24, 4), (32, 4, 2, 64, 16), (64, 40, 3, 300, 33)]
 BATCHES = [1, 7, 32, 300]
+# the lookups' edge cases: one warp, a few CTAs, many CTAs of 256 threads
+LOOKUP_BATCHES = [1, 37, 4099]
 
 
 @pytest.fixture
@@ -130,6 +132,108 @@ def test_wrappers_reject_bad_tensors(dev):
         hp.probe(bk.cpu(), bp.cpu(), keys.cpu(), h.cpu(), h.cpu())
 
 
+@pytest.mark.parametrize("b", LOOKUP_BATCHES)
+@pytest.mark.parametrize("shape", hpc.PROBE_SHAPES)
+@pytest.mark.parametrize("case", hpc.PROBE_CASES)
+def test_probe_edge_cases_match_plain_version(dev, case, shape, b):
+    """Every lookup edge case (``tests/hash_probe_cases.py``) at the serve
+    widths and every SHAPES entry: the kernel equals the plain version,
+    ids out of range matching nothing."""
+    nb, w, kw = shape
+    c = hpc.probe_case(case, seed=nb + b, nb=nb, w=w, kw=kw, b=b)
+    got = hp.probe(**hpc.to_torch(c, dev))
+    torch.cuda.synchronize()
+    _same(hpc.plain_probe(**hpc.to_torch(c)), got, f"probe {case}")
+
+
+@pytest.mark.parametrize("b", LOOKUP_BATCHES)
+@pytest.mark.parametrize("shape", hpc.CACHE_SHAPES)
+@pytest.mark.parametrize("case", hpc.CACHE_CASES)
+def test_cache_probe_edge_cases_match_plain_version(dev, case, shape, b):
+    """The same for ``cache_probe``: the max matching way with meta > 0
+    and its line, set ids out of range hitting nothing."""
+    cs, cw, kw, vw = shape
+    c = hpc.cache_case(case, seed=cs + b, cs=cs, cw=cw, kw=kw, vw=vw, b=b)
+    got = hp.cache_probe(**hpc.to_torch(c, dev))
+    torch.cuda.synchronize()
+    _same(hpc.plain_cache_probe(**hpc.to_torch(c)), got,
+          f"cache_probe {case}")
+
+
+def test_lookups_at_the_load_batch(dev):
+    """65,536 requests (the load phase's batch) at the serve widths: 4,096
+    CTAs of 256 threads, equal to the plain versions."""
+    b = 65536
+    c = hpc.probe_case("random", seed=1, nb=4096, w=8, kw=2, b=b)
+    _same(hpc.plain_probe(**hpc.to_torch(c)),
+          hp.probe(**hpc.to_torch(c, dev)), "probe at 65,536")
+    c = hpc.cache_case("random", seed=2, cs=4096, cw=4, kw=2, vw=16, b=b)
+    _same(hpc.plain_cache_probe(**hpc.to_torch(c)),
+          hp.cache_probe(**hpc.to_torch(c, dev)), "cache_probe at 65,536")
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` on the card whose base is 4-byte but not
+    8-byte aligned (one word into a flat buffer)."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 8 == 4
+    return out
+
+
+@pytest.mark.parametrize("name", ["keys", "bucket_keys"])
+def test_probe_unaligned_arrays_take_4_byte_loads(dev, name):
+    """Keys or bucket keys off the 8-byte grid: the entry point takes the
+    run-time instance (4-byte loads), with the same answers."""
+    c = hpc.probe_case("random", seed=3, nb=16, w=8, kw=2, b=37)
+    t = hpc.to_torch(c, dev)
+    t[name] = _unaligned(t[name])
+    _same(hpc.plain_probe(**hpc.to_torch(c)), hp.probe(**t),
+          f"probe, {name} unaligned")
+
+
+@pytest.mark.parametrize("name", ["keys", "cache_keys", "cache_vals"])
+def test_cache_probe_unaligned_arrays_take_4_byte_loads(dev, name):
+    """The same for ``cache_probe``, cache_vals off the 16-byte grid too."""
+    c = hpc.cache_case("random", seed=4, cs=16, cw=4, kw=2, vw=16, b=37)
+    t = hpc.to_torch(c, dev)
+    t[name] = _unaligned(t[name])
+    _same(hpc.plain_cache_probe(**hpc.to_torch(c)), hp.cache_probe(**t),
+          f"cache_probe, {name} unaligned")
+
+
+def test_lookups_refuse_a_batch_past_their_lane_index(dev):
+    """2^26 + 1 requests: past the lookups' 32-bit lane index, so the C
+    entry points refuse the launch and the wrappers raise."""
+    b = (1 << 26) + 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    keys, ids = torch.zeros((b, 2), **i32), torch.zeros((b,), **i32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hp.probe(torch.zeros((5, 8, 2), **i32), torch.zeros((5, 8), **i32),
+                 keys, ids, ids)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hp.cache_probe(torch.zeros((5, 4, 2), **i32),
+                       torch.zeros((5, 4, 16), **i32),
+                       torch.zeros((5, 4), **i32), keys, ids)
+
+
+def test_cache_probe_wrapper_rejects_bad_tensors(dev):
+    i32 = dict(dtype=torch.int32, device=dev)
+    ck, cv = torch.zeros((5, 4, 2), **i32), torch.zeros((5, 4, 16), **i32)
+    cm, keys = torch.zeros((5, 4), **i32), torch.zeros((3, 2), **i32)
+    cset = torch.zeros((3,), **i32)
+    with pytest.raises(TypeError, match="dtype"):
+        hp.cache_probe(ck, cv, cm, keys, cset.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        hp.cache_probe(ck, torch.zeros((5, 16, 4), **i32).transpose(1, 2),
+                       cm, keys, cset)
+    with pytest.raises(ValueError, match="shape"):
+        hp.cache_probe(ck, cv, torch.zeros((5, 3), **i32), keys, cset)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hp.cache_probe(ck.cpu(), cv.cpu(), cm.cpu(), keys.cpu(), cset.cpu())
+
+
 @pytest.mark.parametrize("cache_sets", [0, 16])
 def test_engine_kvs_kernels_equal_plain_on_the_card(dev, cache_sets):
     """The same seeded traffic through an ``auto`` (kernel) and a ``ref``
@@ -216,8 +320,12 @@ def test_tx_kernels_match_plain_versions(dev, shape, b):
                                 kernel_backend="cuda")
     torch.cuda.synchronize()
     _same(want, got, "commit_chain (per-replica rows)")
-    # shared rows: every replica live
-    slot = torch.where(plan.proceed, (tail[:, None] + plan.log_rank) % lc, lc)
+    # shared rows: every replica live; live slots unique per replica, as
+    # the plan makes them (only the last LC ranks of a lapping batch keep
+    # a slot), since the kernel's writes to one row race
+    survives = plan.log_rank >= plan.n_commit - lc
+    slot = torch.where(plan.proceed & survives,
+                       (tail[:, None] + plan.log_rank) % lc, lc)
     slot = slot.to(torch.int32)
     args = (plan.batch, plan.values, slot, plan.store_rows)
     want = ref.tx_commit_chain(log.clone(), store.clone(), *args)
