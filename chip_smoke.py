@@ -13,19 +13,26 @@ LM paths, and holds every kernel against its plain PyTorch version.
 Phases, each printing one JSON line:
 
 1. device       — the card's name and power limit (nvidia-smi), the build,
-                  ptxas usage and SASS scans (no CALL in the TX commit or
-                  the lookups, no spill in the lookups), and the launch
+                  ptxas usage and SASS scans (no CALL in the TX commit,
+                  the lookups or the PUT commits, no spill in the
+                  lookups), and the launch
                   floor: a one-element PyTorch kernel's device time;
 2. load         — 2^26 distinct keys PUT into a store of 2^24 buckets x 8
                   ways and 2^27 64-B values behind a 65,536 x 4 cache;
 3. kernels      — each KVS kernel against its plain version at the
-                  engine's batch (256 requests on the loaded store), and
+                  engine's batch (256 requests on the loaded store);
                   probe and cache_probe also at the load phase's 65,536;
+                  commit_buckets and write_rows also at the serve mix
+                  (5% PUTs: about 244 of 256 entries aim at the sentinel
+                  rows) and at 65,536 fresh keys;
 4. serve        — 200 KVS engine steps at budget 256 (95% GET / 5% PUT,
                   zipf 0.99 keys, 1% absent) through two engines, ``auto``
                   (the kernels) and ``ref`` (the plain versions on the
                   card): equal responses and final states, GETs of loaded
-                  keys return their values, every kernel launched;
+                  keys return their values, every kernel launched; the
+                  step's device µs and launches with the PUT plan's two
+                  target sorts (which only the TPU commit needs) put back
+                  and without them, in turns;
 5. tx_kernels   — commit and commit_chain against their plain versions on
                   a chain of 3 replicas of 2^24 64-B rows and a 2^18-record
                   log, 256 planned transactions with conflicts, duplicates,
@@ -416,7 +423,9 @@ def entry_summary(entries):
                                   "library_device_us",
                                   "library_device_cold_us", "bound_us",
                                   "device_us", "device_cold_us", "loop_us",
-                                  "device_events_us", "plain_device_us")}
+                                  "device_events_us", "plain_device_us",
+                                  "sentinel_entries", "sector_bound_us")
+                if f in v}
             for k, v in entries.items()}
 
 
@@ -429,6 +438,8 @@ PTXAS_SOURCES = ("flash_attention", "paged_attention", "embedding_reduce",
 # the lookups redesigned to wait on one dependent round trip: their SASS
 # must call nothing (no 64-bit division routine) and ptxas must spill none
 LOOKUP_KERNELS = ("probe_kernel", "cache_probe_kernel")
+# the PUT commits, whose lane maps use shifts: their SASS calls nothing
+COMMIT_KERNELS = ("commit_buckets_kernel", "write_rows_kernel")
 
 
 def ptxas_usage(build, names=PTXAS_SOURCES):
@@ -494,7 +505,8 @@ def kernel_name(mangled: str) -> str:
     t = re.match(r"I(\w*?)E[EvP]", mangled[at + len(name):])
     if t is None:
         return name
-    args = (t.group(1).replace("13__nv_bfloat16Li", "bf16,")
+    args = {"i": "int", "4int4": "int4"}.get(t.group(1), t.group(1))
+    args = (args.replace("13__nv_bfloat16Li", "bf16,")
             .replace("fLi", "f32,").replace("Li", "").replace("E", ","))
     return f"{name}<{args}>"
 
@@ -551,14 +563,15 @@ def phase_device(torch, build):
         raise AssertionError(f"tx_commit: {sass['calls']} CALL instructions "
                              "in its SASS (a 64-bit division routine)")
 
-    def lookup(name):
-        return name.split("<")[0] in LOOKUP_KERNELS
+    def lookup(name, kernels=LOOKUP_KERNELS):
+        return name.split("<")[0] in kernels
 
     calls = {k: v["calls"] for k, v in hp_sass["functions"].items()
-             if lookup(k)}
-    if len(calls) != 4 or any(calls.values()):
+             if lookup(k, LOOKUP_KERNELS + COMMIT_KERNELS)}
+    if len(calls) != 8 or any(calls.values()):
         raise AssertionError(f"hash_probe: CALL instructions in the lookup "
-                             f"kernels' SASS (or instances missing): {calls}")
+                             f"or commit kernels' SASS (or instances "
+                             f"missing): {calls}")
     spills = {k: v for k, v in ptxas.items() if lookup(k)
               and (v.get("spill_stores") or v.get("spill_loads"))}
     if spills:
@@ -646,25 +659,78 @@ def cache_probe_bytes(cfg, batch):
     return batch * (kw * 4 + 4 + cw * (kw + 1) * 4 + 2 * vw * 4 + 5)
 
 
-def phase_kernels(torch, kv, hp, ref, cfg, state):
-    """Each kernel against its plain version at the engine's batch, and the
-    two lookups also at the load phase's."""
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    dev = "cuda"
-    keys, h1, h2, cset, (recent, loaded, absent) = kvs_lookups(
-        torch, kv, state, BATCH, g)
-    np_ = state.pool_size
+def commit_buckets_bytes(cfg, plan, nb):
+    """What ``commit_buckets`` must move on this plan: every entry's tb and
+    tw read; a live entry's key words and pointer read and written; the
+    key words and pointer of each aimed-at sentinel way written once.
+    Returns (bytes, bytes in 32-byte sectors: every entry's tb, tw,
+    bptr_val and key read, and each distinct sector of bucket_keys and
+    bucket_ptr written)."""
+    kw, w = cfg.key_words, cfg.ways
+    b = plan.tb.shape[0]
+    way_ok = (plan.tw >= 0) & (plan.tw < w)
+    live = way_ok & (plan.tb >= 0) & (plan.tb < nb)
+    dead = way_ok & (plan.tb == nb)
+    aimed = int(plan.tw[dead].unique().numel())
+    nbytes = b * 8 + int(live.sum()) * (kw + 1) * 4 * 2 + aimed * (kw + 1) * 4
+    slot = (plan.tb.long() * w + plan.tw.long())[live | dead]
+    sectors = ((slot * kw * 4 // 32).unique().numel()
+               + (slot * 4 // 32).unique().numel())
+    return nbytes, b * (12 + kw * 4) + sectors * 32
 
-    # a planned PUT batch: updates, inserts, in-batch duplicates and
-    # masked rows (the last two aim at the sentinel rows)
+
+def write_rows_bytes(cfg, wp, np_):
+    """What ``write_rows`` must move on these targets: every wp read; a
+    live row read and written; row NP written once if some wp aims at
+    it."""
+    row = cfg.val_words * 4
+    n_live = int(((wp >= 0) & (wp < np_)).sum())
+    return wp.shape[0] * 4 + n_live * row * 2 + row * int(bool(
+        (wp == np_).any()))
+
+
+def commit_batches(torch, kv, cfg, state, g, recent, loaded, absent):
+    """The kernel phase's planned PUT batches, {tag: (keys, vals, plan,
+    batch)}, from the key indices ``kvs_lookups`` drew with ``g``:
+
+    - "" — updates, inserts, in-batch duplicates and masked rows (the
+      last two aim at the sentinel rows), B = 256;
+    - "@serve" — the serve mix: the engine's batch with 5% PUTs, the rest
+      masked as app_step masks its GETs (about 244 of 256 entries dead);
+    - "@65536" — the load phase's batch: 65,536 keys never loaded, their
+      rows from the bump allocator."""
+    dev = "cuda"
+    vw = cfg.val_words
+
+    def planned(keys, vals, mask=None):
+        return (keys, vals, kv.plan_put(state, keys, mask, backend="ref"),
+                keys.shape[0])
+
     put_idx = torch.cat([loaded[: BATCH // 2], absent,
                          loaded[: BATCH // 8], recent[: BATCH // 8]])
-    put_keys = key_words(put_idx, torch)
-    put_vals = torch.randint(-2**31, 2**31 - 1, (BATCH, cfg.val_words),
-                             generator=g, device=dev, dtype=torch.int32)
+    put_vals = torch.randint(-2**31, 2**31 - 1, (BATCH, vw), generator=g,
+                             device=dev, dtype=torch.int32)
     put_mask = torch.rand((BATCH,), generator=g, device=dev) > 0.1
-    plan = kv.plan_put(state, put_keys, put_mask, backend="ref")
+    out = {"": planned(key_words(put_idx, torch), put_vals, put_mask)}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    mix_keys = kvs_lookups(torch, kv, state, BATCH, g)[0]
+    mix_vals = torch.randint(-2**31, 2**31 - 1, (BATCH, vw), generator=g,
+                             device=dev, dtype=torch.int32)
+    mix_mask = torch.rand((BATCH,), generator=g, device=dev) < 0.05
+    out["@serve"] = planned(mix_keys, mix_vals, mix_mask)
+    fresh = N_KEYS + torch.arange(FILL_BATCH, device=dev)
+    out[f"@{FILL_BATCH}"] = planned(key_words(fresh, torch),
+                                    loaded_values(fresh, vw, torch))
+    return out
 
+
+def phase_kernels(torch, kv, hp, ref, cfg, state):
+    """Each kernel against its plain version at the engine's batch; the
+    two lookups also at the load phase's; the two commits also at the
+    serve mix and at the load phase's batch."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    keys, h1, h2, cset, picked = kvs_lookups(torch, kv, state, BATCH, g)
+    np_ = state.pool_size
     entries = {}
 
     def record(name, outs_k, outs_p, k_fn, p_fn, nbytes, lib_fn=None,
@@ -673,7 +739,7 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
                                      outs_p, k_fn, p_fn, nbytes, batch,
                                      lib_fn)
 
-    kw, vw = cfg.key_words, cfg.val_words
+    vw = cfg.val_words
 
     def lookups(keys, h1, h2, cset, batch, tag=""):
         bk, bp = state.bucket_keys, state.bucket_ptr
@@ -702,30 +768,43 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
            BATCH * (4 + 2 * vw * 4),
            lambda: torch.index_select(state.pool, 0, ptr64))
 
-    # the commits, each applied to its own clone of the state arrays
-    bk_k, bp_k = state.bucket_keys.clone(), state.bucket_ptr.clone()
-    bk_p, bp_p = state.bucket_keys.clone(), state.bucket_ptr.clone()
-    args = (put_keys, plan.tb, plan.tw, plan.bptr_val)
-    hp.commit_buckets(bk_k, bp_k, *args)
-    ref.commit_buckets(bk_p, bp_p, *args)
-    record("commit_buckets", (bk_k, bp_k), (bk_p, bp_p),
-           lambda: hp.commit_buckets(bk_k, bp_k, *args),
-           lambda: ref.commit_buckets(bk_p, bp_p, *args),
-           BATCH * (kw * 4 + 12 + (kw + 1) * 4))
-    del bk_k, bp_k, bk_p, bp_p
+    def commits(tag, keys_, vals_, plan_, batch):
+        """Both commits on a planned batch, each kernel and its plain
+        version applied to their own clones of the state arrays."""
+        nb = state.num_buckets
+        bk_k, bp_k = state.bucket_keys.clone(), state.bucket_ptr.clone()
+        bk_p, bp_p = state.bucket_keys.clone(), state.bucket_ptr.clone()
+        args = (keys_, plan_.tb, plan_.tw, plan_.bptr_val)
+        hp.commit_buckets(bk_k, bp_k, *args)
+        ref.commit_buckets(bk_p, bp_p, *args)
+        nbytes, sector_bytes = commit_buckets_bytes(cfg, plan_, nb)
+        record("commit_buckets" + tag, (bk_k, bp_k), (bk_p, bp_p),
+               lambda: hp.commit_buckets(bk_k, bp_k, *args),
+               lambda: ref.commit_buckets(bk_p, bp_p, *args), nbytes,
+               batch=batch)
+        e = entries["commit_buckets" + tag]
+        e["sentinel_entries"] = int((plan_.tb == nb).sum())
+        e["sector_bytes"] = sector_bytes
+        e["sector_bound_us"] = sector_bytes / HBM_BYTES_PER_S * 1e6
+        del bk_k, bp_k, bk_p, bp_p
 
-    pool_k, pool_p = state.pool.clone(), state.pool.clone()
-    hp.write_rows(pool_k, put_vals, plan.wp)
-    ref.write_rows(pool_p, put_vals, plan.wp)
-    wp64 = plan.wp.to(torch.int64)
-    record("write_rows", (pool_k,), (pool_p,),
-           lambda: hp.write_rows(pool_k, put_vals, plan.wp),
-           lambda: ref.write_rows(pool_p, put_vals, plan.wp),
-           BATCH * (4 + 2 * vw * 4),
-           lambda: pool_k.index_copy_(0, wp64, put_vals))
-    entries["write_rows"]["sentinel_entries"] = int((plan.wp == np_).sum())
-    del pool_k, pool_p
-    torch.cuda.empty_cache()
+        pool_k, pool_p = state.pool.clone(), state.pool.clone()
+        hp.write_rows(pool_k, vals_, plan_.wp)
+        ref.write_rows(pool_p, vals_, plan_.wp)
+        wp64 = plan_.wp.to(torch.int64)
+        record("write_rows" + tag, (pool_k,), (pool_p,),
+               lambda: hp.write_rows(pool_k, vals_, plan_.wp),
+               lambda: ref.write_rows(pool_p, vals_, plan_.wp),
+               write_rows_bytes(cfg, plan_.wp, np_),
+               lambda: pool_k.index_copy_(0, wp64, vals_), batch=batch)
+        entries["write_rows" + tag]["sentinel_entries"] = int(
+            (plan_.wp == np_).sum())
+        del pool_k, pool_p
+        torch.cuda.empty_cache()
+
+    for tag, batch in commit_batches(torch, kv, cfg, state, g,
+                                     *picked).items():
+        commits(tag, *batch)
 
     # the lookups at the load phase's batch (a PUT plan's probe, the write-
     # through's cache_probe), on inputs of their own
@@ -824,7 +903,8 @@ def profile_steps(torch, eng, es, app_fn, ecfg, payloads, steps=7):
     """Device time of ``steps`` more engine steps on ``payloads`` (rings
     filled first, so only the steps are profiled): µs per step summed over
     every kernel and copy, device launches per step, and the costliest
-    kernels. The app state is updated by these steps."""
+    kernels; and the engine state after them. The app state is updated by
+    these steps."""
     steps = min(steps, STEPS)
     _, es = eng.drain_responses(es, CAPACITY)[1:]
     qids = torch.arange(QUEUES, dtype=torch.int32, device="cuda")
@@ -841,7 +921,7 @@ def profile_steps(torch, eng, es, app_fn, ecfg, payloads, steps=7):
             "device_launches_per_step": sum(n for _, n in per.values())
             / steps,
             "top_kernels_us_per_step": {k[:90]: us / steps
-                                        for k, (us, _) in top}}
+                                        for k, (us, _) in top}}, box[0]
 
 
 def step_summary(step_s, loop_s, served):
@@ -913,6 +993,33 @@ def check_responses(np, drained, idx, op, absent, stored, val_words,
             "puts": int((op == 2).sum())}
 
 
+def target_sorts(torch, eng, kv, es, app_fn, ecfg, payloads):
+    """The KVS step's device µs and launches a step with the PUT plan as it
+    is and with the two stable argsorts of its targets (tb, wp) put back,
+    which only the TPU commit needs, profiled in turns (without, with,
+    with, without; medians)."""
+    plan_put = kv.plan_put
+
+    def plan_with_sorts(*args, **kwargs):
+        plan = plan_put(*args, **kwargs)
+        torch.argsort(plan.tb, stable=True).to(torch.int32)
+        torch.argsort(plan.wp, stable=True).to(torch.int32)
+        return plan
+
+    turns = {"without": [], "with": []}
+    try:
+        for turn in ("without", "with", "with", "without"):
+            kv.plan_put = plan_with_sorts if turn == "with" else plan_put
+            prof, es = profile_steps(torch, eng, es, app_fn, ecfg, payloads)
+            turns[turn].append(prof)
+    finally:
+        kv.plan_put = plan_put
+    return {turn: {m: statistics.median(p[m] for p in profs)
+                   for m in ("device_us_per_step",
+                             "device_launches_per_step")}
+            for turn, profs in turns.items()}
+
+
 def phase_serve(torch, np, eng, kv, hp, cfg, state, stored, smi):
     payloads, idx, op, absent = make_stream(torch, cfg, kv)
     runs = {}
@@ -943,9 +1050,11 @@ def phase_serve(torch, np, eng, kv, hp, cfg, state, stored, smi):
 
     checked = check_responses(np, dr_k, idx, op, absent, stored,
                               cfg.val_words, loaded_fn)
-    profile = profile_steps(torch, eng, es_k, app_fn, ecfg, payloads)
+    profile, es = profile_steps(torch, eng, es_k, app_fn, ecfg, payloads)
     profile["idle_share"] = 1 - profile["device_us_per_step"] / (
         statistics.median(step_k) * 1e6)
+    profile["target_sorts"] = target_sorts(torch, eng, kv, es, app_fn, ecfg,
+                                           payloads)
     out = {"phase": "serve", "nvidia_smi": smi, "steps": STEPS,
            "budget": BATCH, "queues": QUEUES, **checked,
            "served": tot_k["served"], "cache_hits": tot_k["cache_hits"],
@@ -1726,8 +1835,8 @@ def phase_dlrm_serve(torch, np, eng, dlrm, er, cfg, params, smi):
     np.testing.assert_allclose(logit[ok], direct[ok], rtol=LOGIT_RTOL,
                                atol=LOGIT_ATOL)
     served = int(es_k.served)
-    profile = profile_steps(torch, eng, es_k, app_fn, ecfg,
-                            payloads_t[m:])
+    profile, _ = profile_steps(torch, eng, es_k, app_fn, ecfg,
+                               payloads_t[m:])
     profile["idle_share"] = 1 - profile["device_us_per_step"] / (
         statistics.median(step_k) * 1e6)
     return {"phase": "dlrm_serve", "nvidia_smi": smi, "steps": STEPS,
@@ -2353,8 +2462,8 @@ def main() -> int:
     out, es, snap, stream, app_fn, ecfg = phase_tx_serve(
         torch, np, eng, tx, tx_app, tc, tcfg, smi)
     resync = phase_tx_resync(torch, tx, tc, tcfg, es, snap)
-    out["profile"] = profile_steps(torch, eng, es, app_fn, ecfg,
-                                   stream[STEPS * BATCH:])
+    out["profile"], _ = profile_steps(torch, eng, es, app_fn, ecfg,
+                                      stream[STEPS * BATCH:])
     out["profile"]["idle_share"] = 1 - out["profile"][
         "device_us_per_step"] / out["kernels"]["step_us_median"]
     emit(out)

@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
-"""Time two builds of the KVS lookup kernels (``probe``, ``cache_probe``)
-against each other on one card, in turns (old, new, new, old), on
-``chip_smoke.py``'s ``kernels_vs_plain`` inputs: the GET mix on the loaded
-store (2^24 buckets x 8 ways, 2^26 keys, a 65,536 x 4 cache) at B = 1, 256
-(the engine's batch) and 65,536 (the load phase's).
+"""Time two builds of the KVS hash kernels against each other on one card,
+in turns (old, new, new, old), on ``chip_smoke.py``'s ``kernels_vs_plain``
+inputs on the loaded store (2^24 buckets x 8 ways, 2^26 keys, a 65,536 x 4
+cache):
+
+- the lookups (``probe``, ``cache_probe``): the GET mix at B = 1, 256
+  (the engine's batch) and 65,536 (the load phase's);
+- the PUT commits (``commit_buckets``, ``write_rows``): (a) the kernel
+  phase's PUT batch, (b) the serve mix (5% PUTs, about 244 of 256 entries
+  aimed at the sentinel rows), (c) one live entry, (d) the load phase's
+  65,536 fresh keys.
 
     git show <rev>:src/repro_torch/kernels/csrc/hash_probe.cu \\
         > _scratch/old/hash_probe.cu
-    python3 scripts/hash_probe_ab.py _scratch/old/hash_probe.cu
+    python3 scripts/hash_probe_ab.py _scratch/old/hash_probe.cu \\
+        [--kernels probe,cache_probe,commit_buckets,write_rows]
 
 "old" is the given source, built here with the port's nvcc flags into the
 ignored build directory and called through its C entry points, which
 every version shares; "new" is the checkout's ``csrc/hash_probe.cu``
 through its wrapper. Both are held against the plain version bit for bit
-on every case, and on every edge case of ``tests/hash_probe_cases.py``.
-Each turn reports device µs by ``torch.profiler`` (L2-warm), by CUDA
-events around calls queued behind a spin kernel, and with L2 flushed; the
-report adds the medians of both turns, the launch floor, the card's name
-and power limit (``nvidia-smi``), the SASS scan of both libraries (per
-kernel: CALLs and global loads), both builds' times on variants of the
-inputs that split the time (see :func:`variants`), and the new source
-built at other CTA sizes (``ORCA_PROBE_THREADS``) beside its own. Prints one JSON line; exits non-zero without a card or on a
-mismatch.
+on every case, and on every edge case of ``tests/hash_probe_cases.py``
+and ``tests/kvs_commit_cases.py``. Each turn reports device µs by
+``torch.profiler`` (L2-warm), by CUDA events around calls queued behind a
+spin kernel, and with L2 flushed; the report adds the medians of both
+turns, the launch floor, the card's name and power limit (``nvidia-smi``),
+the SASS scan of both libraries (per kernel: CALLs and global loads),
+both builds' times on variants of the inputs that split the time (see
+:func:`variants` and :func:`commit_variants`), and the new source built
+at other CTA sizes (``ORCA_PROBE_THREADS``; ``ORCA_COMMIT_THREADS``,
+which sets both commits' sizes) beside its own.
+Prints one JSON line; exits non-zero without a card or on a mismatch.
 """
 from __future__ import annotations
 
@@ -31,11 +40,33 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+T0 = time.perf_counter()
+MAX_RSS_GB = 64  # of the GPU machine's 96 GiB of host memory
 TURNS = ("old", "new", "new", "old")
 CTA_SIZES = (32, 64, 128)  # and the checkout's 256
+COMMIT_CTA_SIZES = (32, 64, 128, 256)  # beside the checkout's own sizes
+LOOKUPS = ("probe", "cache_probe")
+COMMITS = ("commit_buckets", "write_rows")
+
+
+class OutOfHostMemory(RuntimeError):
+    pass
+
+
+def progress(what):
+    """One line on stderr: the step starting, seconds so far and this
+    process's resident host memory; raises past MAX_RSS_GB."""
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS")) / 2**20
+    print(f"hash_probe_ab: {what} t={time.perf_counter() - T0:.1f}s "
+          f"rss={rss:.2f}GB", file=sys.stderr, flush=True)
+    if rss > MAX_RSS_GB:
+        raise OutOfHostMemory(f"{rss:.1f} GB resident at {what}")
 
 
 def build_libs(build, sources: dict):
@@ -60,14 +91,18 @@ def build_libs(build, sources: dict):
         lib = ctypes.CDLL(str(out))
         lib.orca_probe.argtypes = [P] * 7 + [LL, LL, I, I, P]
         lib.orca_cache_probe.argtypes = [P] * 8 + [LL, LL, I, I, I, P]
-        lib.orca_probe.restype = lib.orca_cache_probe.restype = ctypes.c_int
+        lib.orca_commit_buckets.argtypes = [P] * 6 + [LL, LL, I, I, P]
+        lib.orca_write_rows.argtypes = [P] * 3 + [LL, LL, I, P]
+        for entry in ("orca_probe", "orca_cache_probe",
+                      "orca_commit_buckets", "orca_write_rows"):
+            getattr(lib, entry).restype = ctypes.c_int
         libs[name] = (lib, out)
     return libs
 
 
 def lib_entries(torch, lib, what):
-    """``probe`` and ``cache_probe`` of a built library, called as the
-    wrapper calls the checkout's."""
+    """The lookups and commits of a built library, called as the wrappers
+    call the checkout's."""
     def check(code):
         if code:
             raise RuntimeError(f"{what} hash_probe: CUDA error {code}")
@@ -95,7 +130,23 @@ def lib_entries(torch, lib, what):
             torch.cuda.current_stream().cuda_stream))
         return hit, way, vals
 
-    return {"probe": probe, "cache_probe": cache_probe}
+    def commit_buckets(bk, bp, keys, tb, tw, bptr_val):
+        check(lib.orca_commit_buckets(
+            bk.data_ptr(), bp.data_ptr(), keys.data_ptr(), tb.data_ptr(),
+            tw.data_ptr(), bptr_val.data_ptr(), keys.shape[0],
+            bk.shape[0] - 1, bk.shape[1], keys.shape[1],
+            torch.cuda.current_stream().cuda_stream))
+        return bk, bp
+
+    def write_rows(pool, vals, wp):
+        check(lib.orca_write_rows(
+            pool.data_ptr(), vals.data_ptr(), wp.data_ptr(), vals.shape[0],
+            pool.shape[0] - 1, vals.shape[1],
+            torch.cuda.current_stream().cuda_stream))
+        return pool
+
+    return {"probe": probe, "cache_probe": cache_probe,
+            "commit_buckets": commit_buckets, "write_rows": write_rows}
 
 
 def timings(torch, cs, fn):
@@ -193,56 +244,39 @@ def edge_cases(torch, fns):
     return miss
 
 
-def main() -> int:
-    import torch
+def _medians(turns, build):
+    mine = [t for t in turns if t["build"] == build]
+    return {m: statistics.median(t[m] for t in mine)
+            for m in ("device_us", "device_events_us", "device_cold_us")}
 
-    if not torch.cuda.is_available():
-        print("hash_probe_ab: no CUDA device", file=sys.stderr)
-        return 2
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
-    import chip_smoke as cs
-    from repro_torch.core import kvstore as kv
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import hash_probe as hp
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
-    src = _build.CSRC / "hash_probe.cu"
-    libs = build_libs(_build, {
-        "old": (Path(sys.argv[1]).resolve(), ()),
-        **{f"t{n}": (src, (f"-DORCA_PROBE_THREADS={n}",))
-           for n in CTA_SIZES}})
-    _build.build(["hash_probe"])
-    fns = {k: lib_entries(torch, lib, k) for k, (lib, _) in libs.items()}
-    fns["new"] = {"probe": hp.probe, "cache_probe": hp.cache_probe}
+def _sweep(torch, cs, fns, order, fn_of):
+    """Device µs (profiler, queued events) of each build in ``order``, in
+    turns forward and back; medians of the two."""
+    runs = {k: [] for k in order}
+    for k in order + order[::-1]:
+        fn = fn_of(k)
+        runs[k].append((cs.device_us(torch, fn)[0], cs.queued_us(torch, fn)))
+    return {k: {"device_us": statistics.median(r[0] for r in v),
+                "device_events_us": statistics.median(r[1] for r in v)}
+            for k, v in runs.items()}
+
+
+def lookup_report(torch, cs, kv, ref, fns, state, cfg, report, bad):
+    """The lookups' cases, CTA sizes and variants into ``report``."""
     plain = {"probe": ref.hash_probe, "cache_probe": ref.cache_probe}
-    with contextlib.redirect_stdout(sys.stderr):  # the load phase's line
-        cfg, state, _, _ = cs.phase_load(torch, kv, hp)
     tables = {"probe": (state.bucket_keys, state.bucket_ptr),
               "cache_probe": (state.cache_keys, state.cache_vals,
                               state.cache_meta)}
-    x = torch.zeros((1,), dtype=torch.float32, device="cuda")
-    report = {"tool": "hash_probe_ab", "nvidia_smi": smi,
-              "kind": torch.cuda.get_device_name(0),
-              "old_source": sys.argv[1], "turns": list(TURNS),
-              "launch_floor": timings(torch, cs, lambda: x.add_(1)),
-              "cases": {}, "cta_sizes": {}}
-    bad = []
     # chip_smoke's seeds at the engine's batch and the load phase's
     seeds = {1: cs.SEED + 3, cs.BATCH: cs.SEED + 1, cs.FILL_BATCH: cs.SEED + 2}
-    inputs = {}
     for b in seeds:
+        progress(f"lookups@{b}")
         g = torch.Generator(device="cuda").manual_seed(seeds[b])
         keys, h1, h2, cset, _ = cs.kvs_lookups(torch, kv, state, b, g)
-        inputs[b] = {"probe": (keys, h1, h2), "cache_probe": (keys, cset)}
-        for name in ("probe", "cache_probe"):
-            args = (*tables[name], *inputs[b][name])
+        inputs = {"probe": (keys, h1, h2), "cache_probe": (keys, cset)}
+        for name in LOOKUPS:
+            args = (*tables[name], *inputs[name])
             want = plain[name](*args)
             miss = {k: sum(cs.mismatches(torch, a, w)
                            for a, w in zip(fns[k][name](*args), want))
@@ -257,25 +291,15 @@ def main() -> int:
                    "bound_us": nbytes / cs.HBM_BYTES_PER_S * 1e6,
                    "found" if name == "probe" else "hits": int(want[0].sum())}
             for k in ("old", "new"):
-                mine = [t for t in turns if t["build"] == k]
-                out[k] = {m: statistics.median(t[m] for t in mine)
-                          for m in ("device_us", "device_events_us",
-                                    "device_cold_us")}
+                out[k] = _medians(turns, k)
             report["cases"][f"{name}@{b}"] = out
             if b == 1:
                 continue
             # CTA sizes: each other build and the checkout's, in turns
             # forward and back
-            order = [f"t{n}" for n in CTA_SIZES] + ["new"]
-            runs = {k: [] for k in order}
-            for k in order + order[::-1]:
-                runs[k].append((cs.device_us(
-                    torch, lambda k=k: fns[k][name](*args))[0], cs.queued_us(
-                    torch, lambda k=k: fns[k][name](*args))))
-            report["cta_sizes"][f"{name}@{b}"] = {
-                k: {"device_us": statistics.median(r[0] for r in v),
-                    "device_events_us": statistics.median(r[1] for r in v)}
-                for k, v in runs.items()}
+            report["cta_sizes"][f"{name}@{b}"] = _sweep(
+                torch, cs, fns, [f"t{n}" for n in CTA_SIZES] + ["new"],
+                lambda k: lambda: fns[k][name](*args))
     breakdown = {}
     for b in (cs.BATCH, cs.FILL_BATCH):
         g = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
@@ -299,12 +323,243 @@ def main() -> int:
                     for _ in range(2))}
             breakdown[f"{var}@{b}"] = res
     report["breakdown"] = breakdown
-    del state, tables, inputs
+
+
+def commit_cases(torch, cs, kv, cfg, state):
+    """The commits' cases, {name: (keys, vals, plan, batch)}: (a) the
+    kernel phase's PUT batch, (b) the serve mix, (c) one live entry (a
+    fresh key), (d) the load phase's 65,536 fresh keys — chip_smoke's
+    ``commit_batches`` on its own seeds."""
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+    picked = cs.kvs_lookups(torch, kv, state, cs.BATCH, g)[4]
+    batches = cs.commit_batches(torch, kv, cfg, state, g, *picked)
+    load = batches[f"@{cs.FILL_BATCH}"]
+    one = (load[0][:1], load[1][:1],
+           kv.plan_put(state, load[0][:1], backend="ref"), 1)
+    return {"a_kernel_phase": batches[""], "b_serve_mix": batches["@serve"],
+            "c_one_live": one, "d_load_batch": load}
+
+
+def commit_variants(torch, kv, state, cases):
+    """Inputs that split the commits' time, {name: (keys, vals, plan,
+    batch)}: every entry dead with the dead ``tw`` over every way (at 256
+    and 65,536), and every entry live (256 fresh keys)."""
+    from types import SimpleNamespace
+
+    nb, np_, w = state.num_buckets, state.pool_size, state.bucket_ptr.shape[1]
+    out = {}
+    for case in ("b_serve_mix", "d_load_batch"):
+        keys, vals, _, b = cases[case]
+        i = torch.arange(b, device="cuda", dtype=torch.int32)
+        full = torch.full((b,), nb, device="cuda", dtype=torch.int32)
+        out[f"all_dead@{b}"] = (keys, vals, SimpleNamespace(
+            tb=full, tw=i % w, bptr_val=i, wp=torch.full_like(full, np_)), b)
+    keys, vals = (x[:256] for x in cases["d_load_batch"][:2])
+    out["all_live@256"] = (keys, vals,
+                           kv.plan_put(state, keys, backend="ref"), 256)
+    return out
+
+
+def commit_report(torch, cs, kv, ref, fns, state, cfg, report, bad):
+    """The commits' cases (old and new in turns), their CTA-size builds,
+    and their variants, into ``report``."""
+    nb, np_ = state.num_buckets, state.pool_size
+    plain = {"commit_buckets": ref.commit_buckets,
+             "write_rows": ref.write_rows}
+
+    def arrays(name):  # fresh clones of the arrays a commit writes
+        if name == "commit_buckets":
+            return state.bucket_keys.clone(), state.bucket_ptr.clone()
+        return (state.pool.clone(),)
+
+    def inputs(name, keys, vals, plan):
+        if name == "commit_buckets":
+            return keys, plan.tb, plan.tw, plan.bptr_val
+        return vals, plan.wp
+
+    def outs(x):  # commit_buckets returns two arrays, write_rows one
+        return x if isinstance(x, tuple) else (x,)
+
+    def check(name, args, builds, what):
+        want = outs(plain[name](*arrays(name), *args))
+        for k in builds:
+            got = outs(fns[k][name](*arrays(name), *args))
+            n = sum(cs.mismatches(torch, a, w) for a, w in zip(got, want))
+            if n:
+                bad.append(f"{what} {k}")
+            yield k, n
+            del got
+        del want
+        torch.cuda.empty_cache()
+
+    def bounds(name, plan):
+        if name == "commit_buckets":
+            nbytes, sectors = cs.commit_buckets_bytes(cfg, plan, nb)
+            return {"bytes": nbytes, "sector_bytes": sectors,
+                    "bound_us": nbytes / cs.HBM_BYTES_PER_S * 1e6,
+                    "sector_bound_us": sectors / cs.HBM_BYTES_PER_S * 1e6,
+                    "dead": int((plan.tb == nb).sum())}
+        nbytes = cs.write_rows_bytes(cfg, plan.wp, np_)
+        return {"bytes": nbytes,
+                "bound_us": nbytes / cs.HBM_BYTES_PER_S * 1e6,
+                "dead": int((plan.wp == np_).sum())}
+
+    cases = commit_cases(torch, cs, kv, cfg, state)
+    others = [f"c{n}" for n in COMMIT_CTA_SIZES]
+
+    def builds(name, args, dst, what):
+        """The CTA sizes beside the checkout's build, in turns forward and
+        back."""
+        progress(f"{what} builds")
+        return {"mismatches": dict(check(name, args, others, what)),
+                **_sweep(torch, cs, fns, others + ["new"],
+                         lambda k: lambda: fns[k][name](*dst, *args))}
+
+    for case, (keys, vals, plan, b) in cases.items():
+        for name in COMMITS:
+            args = inputs(name, keys, vals, plan)
+            what = f"{name}@{case}"
+            progress(what)
+            miss = dict(check(name, args, ("old", "new"), what))
+            dst = arrays(name)
+            turns = [{"build": k, **timings(
+                torch, cs, lambda k=k: fns[k][name](*dst, *args))}
+                for k in TURNS]
+            out = {"batch": b, "mismatches": miss, "turns": turns,
+                   **bounds(name, plan)}
+            for k in ("old", "new"):
+                out[k] = _medians(turns, k)
+            report["cases"][what] = out
+            report["commit_builds"][what] = builds(name, args, dst, what)
+            del dst
+            torch.cuda.empty_cache()
+    for var, (keys, vals, plan, b) in commit_variants(
+            torch, kv, state, cases).items():
+        for name in COMMITS:
+            args = inputs(name, keys, vals, plan)
+            what = f"{name}/{var}"
+            progress(what)
+            miss = dict(check(name, args, ("old", "new"), what))
+            dst = arrays(name)
+            res = {"mismatches": miss, **bounds(name, plan)}
+            for k in ("old", "new"):
+                fn = fns[k][name]
+                res[k] = {"device_us": statistics.median(
+                    cs.device_us(torch, lambda: fn(*dst, *args))[0]
+                    for _ in range(2)),
+                    "device_events_us": statistics.median(
+                    cs.queued_us(torch, lambda: fn(*dst, *args))
+                    for _ in range(2))}
+            report["commit_variants"][what] = res
+            report["commit_builds"][what] = builds(name, args, dst, what)
+            del dst
+            torch.cuda.empty_cache()
+
+
+def commit_edge_cases(torch, fns):
+    """Mismatching elements of each build against the plain versions on
+    every case, shape and batch of ``tests/kvs_commit_cases.py``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import kvs_commit_cases as kcc
+
+    from chip_smoke import mismatches
+
+    miss = dict.fromkeys(fns, 0)
+    for b in kcc.BATCHES:
+        for case in kcc.CASES:
+            for nb, w, kw, np_, vw in kcc.SHAPES:
+                c = kcc.commit_case(case, seed=nb * 7 + vw + b, nb=nb, w=w,
+                                    kw=kw, np_=np_, vw=vw, b=b)
+                want = kcc.plain_commit(**kcc.to_torch(c, "cuda"))
+                for k, f in fns.items():
+                    t = kcc.to_torch(c, "cuda")
+                    got = (*f["commit_buckets"](
+                        t["bucket_keys"], t["bucket_ptr"], t["keys"],
+                        t["tb"], t["tw"], t["bptr_val"]),
+                        f["write_rows"](t["pool"], t["vals"], t["wp"]))
+                    miss[k] += sum(mismatches(torch, x, y)
+                                   for x, y in zip(got, want))
+    torch.cuda.synchronize()
+    return miss
+
+
+def main() -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old_source")
+    ap.add_argument("--kernels", default=",".join(LOOKUPS + COMMITS))
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("hash_probe_ab: no CUDA device", file=sys.stderr)
+        return 2
+    kernels = a.kernels.split(",")
+    unknown = set(kernels) - set(LOOKUPS + COMMITS)
+    if unknown:
+        ap.error(f"unknown kernels: {sorted(unknown)}")
+    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+    import chip_smoke as cs
+    from repro_torch.core import kvstore as kv
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import hash_probe as hp
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    src = _build.CSRC / "hash_probe.cu"
+    lookups = [k for k in LOOKUPS if k in kernels]
+    commits = [k for k in COMMITS if k in kernels]
+    sources = {"old": (Path(a.old_source).resolve(), ())}
+    if lookups:
+        sources.update({f"t{n}": (src, (f"-DORCA_PROBE_THREADS={n}",))
+                        for n in CTA_SIZES})
+    if commits:
+        sources.update({f"c{n}": (src, (f"-DORCA_COMMIT_THREADS={n}",))
+                        for n in COMMIT_CTA_SIZES})
+    libs = build_libs(_build, sources)
+    _build.build(["hash_probe"])
+    fns = {k: lib_entries(torch, lib, k) for k, (lib, _) in libs.items()}
+    fns["new"] = {"probe": hp.probe, "cache_probe": hp.cache_probe,
+                  "commit_buckets": hp.commit_buckets,
+                  "write_rows": hp.write_rows}
+    with contextlib.redirect_stdout(sys.stderr):  # the load phase's line
+        cfg, state, _, _ = cs.phase_load(torch, kv, hp)
+    x = torch.zeros((1,), dtype=torch.float32, device="cuda")
+    report = {"tool": "hash_probe_ab", "nvidia_smi": smi,
+              "kind": torch.cuda.get_device_name(0),
+              "old_source": a.old_source, "kernels": kernels,
+              "turns": list(TURNS),
+              "launch_floor": timings(torch, cs, lambda: x.add_(1)),
+              "cases": {}, "cta_sizes": {}, "commit_builds": {},
+              "commit_variants": {}}
+    bad = []
+    try:
+        if lookups:
+            lookup_report(torch, cs, kv, ref, fns, state, cfg, report, bad)
+        if commits:
+            commit_report(torch, cs, kv, ref, fns, state, cfg, report, bad)
+    except OutOfHostMemory as e:  # what was measured, then fail
+        report["out_of_host_memory"] = str(e)
+        print(json.dumps(report), flush=True)
+        raise
+    del state
     torch.cuda.empty_cache()
-    report["edge_case_mismatches"] = edge_cases(
-        torch, {k: fns[k] for k in ("old", "new")})
-    bad += [f"edge cases {k}" for k, n in
-            report["edge_case_mismatches"].items() if n]
+    progress("edge cases")
+    builds = {k: fns[k] for k in ("old", "new")}
+    if lookups:
+        report["edge_case_mismatches"] = edge_cases(torch, builds)
+        bad += [f"edge cases {k}" for k, n in
+                report["edge_case_mismatches"].items() if n]
+    if commits:
+        report["commit_edge_case_mismatches"] = commit_edge_cases(
+            torch, {**builds, "c32": fns["c32"]})
+        bad += [f"commit edge cases {k}" for k, n in
+                report["commit_edge_case_mismatches"].items() if n]
+    progress("sass")
     report["sass"] = {
         "old": cs.sass_scan(_build, libs["old"][1]),
         "new": cs.sass_scan(_build, _build.library_path("hash_probe"))}

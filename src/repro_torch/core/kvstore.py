@@ -325,9 +325,8 @@ class PutPlan(NamedTuple):
 
     ``tb == NB`` means no bucket write, ``wp == NP`` means no value write —
     both backends aim them at the state's resident zero sentinel row and
-    zero the payload. ``bucket_order``/``row_order`` (the target sort
-    orders) are kept for parity with the JAX plan, whose TPU commit needs
-    them; the CUDA commit does not."""
+    zero the payload. The JAX plan also carries the target sort orders,
+    which only its in-order TPU commit needs; neither commit here does."""
 
     tb: torch.Tensor  # (B,) target bucket row
     tw: torch.Tensor  # (B,) target way within the bucket
@@ -336,8 +335,6 @@ class PutPlan(NamedTuple):
     alloc: torch.Tensor  # () updated bump allocator
     dropped: torch.Tensor  # () updated drop counter
     ok: torch.Tensor  # (B,) per-request success
-    bucket_order: torch.Tensor  # (B,) argsort(tb)
-    row_order: torch.Tensor  # (B,) argsort(wp)
 
 
 def plan_put(state: KVState, keys, mask=None, *,
@@ -436,11 +433,7 @@ def plan_put(state: KVState, keys, mask=None, *,
     alloc = state.alloc + torch.clamp(torch.sum(fits.to(I32)), min=0).to(I32)
     dropped = state.dropped + torch.sum(drop.to(I32)).to(I32)
     ok = mask & (exists | fits)
-    return PutPlan(
-        tb, tw, bptr_val, wp, alloc, dropped, ok,
-        bucket_order=torch.argsort(tb, stable=True).to(I32),
-        row_order=torch.argsort(wp, stable=True).to(I32),
-    )
+    return PutPlan(tb, tw, bptr_val, wp, alloc, dropped, ok)
 
 
 def put(state: KVState, keys, vals, mask=None, *,
@@ -459,8 +452,7 @@ def put(state: KVState, keys, vals, mask=None, *,
     plan = plan_put(state, keys, mask, backend=backend)
     bucket_keys, bucket_ptr, pool = kops.hash_put(
         state.bucket_keys, state.bucket_ptr, state.pool, keys, vals,
-        plan.tb, plan.tw, plan.bptr_val, plan.wp,
-        plan.bucket_order, plan.row_order, backend=backend,
+        plan.tb, plan.tw, plan.bptr_val, plan.wp, backend=backend,
     )
     state = state._replace(
         bucket_keys=bucket_keys, bucket_ptr=bucket_ptr, pool=pool,

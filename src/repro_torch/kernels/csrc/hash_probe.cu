@@ -40,15 +40,54 @@
 // to 2.5x: below 128 threads the time follows the count of CTAs (about
 // 90 ns a CTA on each SM at 32 threads).
 //
-// fetch, commit_buckets and write_rows are still the first simple
-// kernels: one thread per word, coalesced where the layout allows.
+// The PUT commits (commit_buckets, write_rows) move less still and wait on
+// one round trip: the targets and payload load together, then the
+// stores. What the first port spent on top of the launch was index
+// arithmetic (a thread a 4-byte word, its entry and word found by a
+// 64-bit division: a called subroutine each) and sentinel traffic: every
+// dead entry stored zeros word by word onto the one pad row, and on the
+// serve path about 244 of 256 entries are dead (app_step passes the whole
+// batch with only its 5% of PUTs live), about 730 stores onto 12 bytes
+// and 3,900 onto one 64-byte row a launch. Accesses to a few lines from
+// many warps queue in the L2 slices that hold them (csrc/tx_commit.cu).
+// So here a lane takes an entry or a 16-byte chunk of a row, its indices
+// come from shifts, and a dead entry stores nothing: each warp zeroes the
+// sentinel ways its dead entries aim at once (commit_buckets), each CTA
+// row NP once (write_rows). Measured with scripts/hash_probe_ab.py on an
+// H100 against two CTA-wide ways. One more CTA that reads every target
+// and zeroes once (as the TX commit does) lost or tied everywhere: 0.4
+// µs behind in commit_buckets at the engine's batch, 7-26 µs behind at
+// 65,536, where one SM reads the whole batch's targets. A mask of
+// aimed-at ways in shared memory, read after a barrier, cost
+// commit_buckets 0.1-0.2 µs at B <= 256 against the warps zeroing their
+// own ways (at most 8 warps storing 12 bytes each onto one sector); at
+// 65,536 the two lay within the measurement's spread, and the mask won
+// only on a batch of 65,536 dead entries, which no caller plans.
+// write_rows' CTA vote is a barrier reduction (__syncthreads_or), within
+// 0.1 µs of the launch floor at the engine's batch.
+//
+// CTA sizes, measured the same way against 32-256 threads: 64 for
+// commit_buckets (4 CTAs at the engine's batch spread a batch of live
+// entries' scattered stores over 4 SMs: 1.3 µs against 1.7 at 256
+// threads; level elsewhere), 256 for write_rows (best at 65,536 rows,
+// where 32 threads take 2.3x as long; level at the engine's batch).
+// ORCA_COMMIT_THREADS builds both at another size. At 65,536 entries
+// commit_buckets takes 2.3-2.7x its byte bound counted in 32-byte
+// sectors: what is left is its two random partial-sector stores an
+// entry, which the parent makes too (an all-dead batch of that size
+// takes 2.2 µs).
+//
+// fetch is still the first simple kernel: one thread per word, coalesced
+// where the layout allows.
 //
 // Each C entry point launches one kernel on the caller's stream (a
 // cudaStream_t passed as void*), does not synchronise, and returns
 // cudaGetLastError() so the Python wrapper can raise on a refused launch
-// (cudaErrorInvalidValue for a batch past the lookups' 32-bit lane index).
+// (cudaErrorInvalidValue for a batch past the 32-bit lane index of the
+// lookups and commits).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #ifndef ORCA_PROBE_THREADS
@@ -60,7 +99,15 @@ namespace {
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kLookupThreads = ORCA_PROBE_THREADS;
-constexpr long long kMaxLookups = 1LL << 26;  // lookup lanes fit in 32 bits
+#ifdef ORCA_COMMIT_THREADS  // one CTA size for both commits (A/B builds)
+constexpr int kBucketThreads = ORCA_COMMIT_THREADS;
+constexpr int kRowThreads = ORCA_COMMIT_THREADS;
+#else
+constexpr int kBucketThreads = 64;  // threads a CTA of commit_buckets
+constexpr int kRowThreads = 256;    // threads a CTA of write_rows
+#endif
+// at most 32 lanes a request or entry, so a launch's lanes fit in 32 bits
+constexpr long long kMaxBatch = 1LL << 26;
 
 __device__ __forceinline__ int64_t global_thread() {
   return int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -293,60 +340,131 @@ __global__ void cache_probe_kernel(const int32_t* __restrict__ cache_keys,
 }
 
 // ---------------------------------------------------------------------------
-// commit_buckets — replaces repro/kernels/hash_probe.py::commit_buckets.
-// PUT scatter pass 1, in place: one thread per word of an entry (KW key
-// words + the pointer). The TPU kernel rewrites whole bucket rows, safe
-// only because its grid runs in order over bucket-sorted entries; blocks
-// here run in parallel, so each entry stores ONLY its chosen way's words.
-// That is race-free: the plan makes live (tb, tw) unique, and every entry
-// aimed at the sentinel row NB writes identical zeros. The sort order the
-// TPU kernel needs is not used.
-// Bytes per entry: (KW + 1) * 4 read and written + 12 of plan.
+// The PUT commit, in place: commit_buckets (pass 1) and write_rows (pass
+// 2). They replace repro/kernels/hash_probe.py::commit_buckets and
+// ::write_rows together with the payload zeroing its insert does first.
+// The TPU kernels rewrite whole rows in a grid that runs in order over
+// target-sorted entries; CTAs here run in parallel and in no order, which
+// is race-free because the plan makes live targets unique
+// (kernels/ref.py::hash_put). No sort is needed.
+//
+// An entry is LIVE when it aims below the sentinel row (0 <= tb < NB with
+// 0 <= tw < W; 0 <= wp < NP), DEAD when it aims at the sentinel row (tb ==
+// NB with 0 <= tw < W; wp == NP), and skipped otherwise. A live entry
+// stores its payload; a dead one stores nothing. The sentinel pass keeps
+// the Pallas kernels' rule (a dead entry's payload is zero, and it is
+// written): every sentinel word some entry aims at is made zero — way tw
+// of row NB (its key words and pointer), all of pool row NP — and no other
+// sentinel word changes, non-zero ones included.
 // ---------------------------------------------------------------------------
+
+// commit_buckets: one lane an entry. Round 1 loads tb, tw, bptr_val and
+// (serve instance: W 8, KW 2, bucket_keys and keys 8-byte aligned) the
+// key as one 8-byte load; a live entry then stores the key as one 8-byte
+// store and the pointer as one 4-byte store. The run-time instance (every
+// other shape) loads and stores the key words 4 bytes at a time after the
+// targets. A dead entry stores nothing: each warp zeroes each way of row
+// NB that its dead entries aim at once, by lane w after an OR-reduction
+// of the warp's way bits (W <= 32), else by the first of the lanes that
+// aim at w (a match over the warp). No barrier and no shared memory.
+// Bytes an entry: tb, tw, bptr_val and KW key words read; (KW + 1) * 4
+// written where live, in one 32-byte sector of each array.
+template <int kWays>
+__device__ __forceinline__ void zero_way(int32_t* bucket_keys,
+                                         int32_t* bucket_ptr, int64_t slot,
+                                         int key_words) {
+  if constexpr (kWays > 0) {
+    *reinterpret_cast<int2*>(bucket_keys + slot * 2) = make_int2(0, 0);
+  } else {
+    for (int j = 0; j < key_words; ++j) bucket_keys[slot * key_words + j] = 0;
+  }
+  bucket_ptr[slot] = 0;
+}
+
+template <int kWays>
 __global__ void commit_buckets_kernel(int32_t* __restrict__ bucket_keys,
                                       int32_t* __restrict__ bucket_ptr,
                                       const int32_t* __restrict__ keys,
                                       const int32_t* __restrict__ tb,
                                       const int32_t* __restrict__ tw,
                                       const int32_t* __restrict__ bptr_val,
-                                      int64_t batch, int64_t nb, int ways,
+                                      unsigned batch, int nb, int ways,
                                       int key_words) {
-  const int64_t t = global_thread();
-  const int per = key_words + 1;
-  if (t >= batch * per) return;
-  const int64_t i = t / per;
-  const int j = int(t % per);
-  const int64_t b = tb[i];
-  const int w = tw[i];
-  if (b < 0 || b > nb || w < 0 || w >= ways) return;  // outside the arrays
-  const bool sentinel = b == nb;
-  const int64_t slot = b * ways + w;
-  if (j < key_words)
-    bucket_keys[slot * key_words + j] = sentinel ? 0 : keys[i * key_words + j];
-  else
-    bucket_ptr[slot] = sentinel ? 0 : bptr_val[i];
+  static_assert(kWays == 0 || kWays == 8, "the serve instance: W 8, KW 2");
+  if constexpr (kWays > 0) ways = kWays;
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  int b = -1, w = -1, p = 0;
+  int2 k2 = make_int2(0, 0);
+  if (i < batch) {
+    b = __ldg(tb + i);
+    w = __ldg(tw + i);
+    p = __ldg(bptr_val + i);
+    if constexpr (kWays > 0) k2 = ldg2(keys + int64_t(i) * 2);
+  }
+  const bool way_ok = unsigned(w) < unsigned(ways);
+  if (way_ok && unsigned(b) < unsigned(nb)) {
+    const int64_t slot = int64_t(b) * ways + w;
+    if constexpr (kWays > 0) {
+      *reinterpret_cast<int2*>(bucket_keys + slot * 2) = k2;
+    } else {
+      const int32_t* src = keys + int64_t(i) * key_words;
+      int32_t* dst = bucket_keys + slot * key_words;
+      for (int j = 0; j < key_words; ++j) dst[j] = __ldg(src + j);
+    }
+    bucket_ptr[slot] = p;
+  }
+  const bool dead = way_ok && b == nb;
+  const int lane = int(threadIdx.x) & 31;
+  const int64_t row = int64_t(nb) * ways;
+  if (ways <= 32) {  // block-uniform
+    const unsigned bits = __reduce_or_sync(kFullMask, dead ? 1u << w : 0u);
+    if (bits >> lane & 1u)
+      zero_way<kWays>(bucket_keys, bucket_ptr, row + lane, key_words);
+  } else {
+    const unsigned peers = __match_any_sync(kFullMask, dead ? w : -1);
+    if (dead && __ffs(peers) - 1 == lane)
+      zero_way<kWays>(bucket_keys, bucket_ptr, row + w, key_words);
+  }
 }
 
-// ---------------------------------------------------------------------------
-// write_rows — replaces repro/kernels/hash_probe.py::write_rows.
-// PUT scatter pass 2, in place: one thread per value word, row wp[i] <-
-// vals[i]; entries aimed at the sentinel row NP write zeros (the payload
-// zeroing the JAX wrapper does beforehand happens here). Live wp are
-// unique by the plan's construction, so no two threads race on a live row.
-// Bytes per entry: VW * 4 read and written + 4 of plan.
-// ---------------------------------------------------------------------------
+// write_rows: a row takes L = 2^shift lanes (its chunks rounded up to a
+// power of two, at most 32), 32 / L rows a warp; a chunk is 16 bytes
+// (V = int4: VW % 4 == 0 and pool and vals 16-byte aligned, the engine's
+// 64-byte rows taking 4 lanes, 8 rows a warp) or 4 (V = int, the run-time
+// instance). The row's first lane loads its wp while every lane loads its
+// chunk of vals (one round), the others take wp by a shuffle, and a live
+// row's lanes store their chunks; rows past 32 chunks loop. A dead row
+// stores nothing: a CTA-wide vote (__syncthreads_or) decides whether the
+// CTA zeroes row NP, once, in chunks across its threads.
+// Bytes an entry: wp and VW * 4 of vals read, VW * 4 written where live.
+template <typename V>
 __global__ void write_rows_kernel(int32_t* __restrict__ pool,
                                   const int32_t* __restrict__ vals,
                                   const int32_t* __restrict__ wp,
-                                  int64_t batch, int64_t np_rows,
-                                  int val_words) {
-  const int64_t t = global_thread();
-  if (t >= batch * val_words) return;
-  const int64_t i = t / val_words;
-  const int64_t j = t % val_words;
-  const int64_t r = wp[i];
-  if (r < 0 || r > np_rows) return;  // outside the array
-  pool[r * val_words + j] = (r == np_rows) ? 0 : vals[t];
+                                  unsigned batch, int np_rows, int val_words,
+                                  int shift) {
+  constexpr int kVec = sizeof(V) / sizeof(int32_t);
+  const int chunks = val_words / kVec;
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int group = (1 << shift) - 1;
+  const int lane = int(threadIdx.x) & 31;
+  const int c0 = lane & group;
+  const unsigned row = t >> shift;
+  const bool in = row < batch;
+  int target = -1;
+  if (in && c0 == 0) target = __ldg(wp + row);
+  const V* src = reinterpret_cast<const V*>(vals + int64_t(row) * val_words);
+  const V v = in && c0 < chunks ? __ldg(src + c0) : V{};
+  target = __shfl_sync(kFullMask, target, lane & ~group);
+  if (unsigned(target) < unsigned(np_rows)) {  // live
+    V* dst = reinterpret_cast<V*>(pool + int64_t(target) * val_words);
+    if (c0 < chunks) dst[c0] = v;
+    for (int c = c0 + 32; c < chunks; c += 32) dst[c] = __ldg(src + c);
+  }
+  if (__syncthreads_or(target == np_rows)) {
+    V* sentinel = reinterpret_cast<V*>(pool + int64_t(np_rows) * val_words);
+    for (int c = threadIdx.x; c < chunks; c += blockDim.x) sentinel[c] = V{};
+  }
 }
 
 unsigned blocks_for(int64_t threads) {
@@ -370,7 +488,7 @@ int orca_probe(const void* bucket_keys, const void* bucket_ptr,
                void* ptr, long long batch, long long rows, int ways,
                int key_words, void* stream) {
   if (batch <= 0) return 0;
-  if (batch > kMaxLookups || ways <= 0 || key_words <= 0)
+  if (batch > kMaxBatch || ways <= 0 || key_words <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int half_shift = 0;  // L = 1 << half_shift lanes a bucket
   while ((1 << half_shift) < ways && half_shift < 4) ++half_shift;
@@ -407,7 +525,7 @@ int orca_cache_probe(const void* cache_keys, const void* cache_vals,
                      long long batch, long long sets, int ways, int key_words,
                      int val_words, void* stream) {
   if (batch <= 0) return 0;
-  if (batch > kMaxLookups || ways <= 0 || key_words <= 0 || val_words <= 0)
+  if (batch > kMaxBatch || ways <= 0 || key_words <= 0 || val_words <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool serve = ways == 4 && key_words == 2 && val_words == 16 &&
                      aligned(cache_keys, 8) && aligned(keys, 8) &&
@@ -434,12 +552,20 @@ int orca_commit_buckets(void* bucket_keys, void* bucket_ptr, const void* keys,
                         long long batch, long long nb, int ways, int key_words,
                         void* stream) {
   if (batch <= 0) return 0;
-  commit_buckets_kernel<<<blocks_for(batch * (key_words + 1)), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  if (batch > kMaxBatch || nb < 0 || nb > INT_MAX || ways <= 0 ||
+      key_words <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool serve = ways == 8 && key_words == 2 &&
+                     aligned(bucket_keys, 8) && aligned(keys, 8);
+  const unsigned blocks =
+      unsigned((batch + kBucketThreads - 1) / kBucketThreads);
+  auto kernel = serve ? commit_buckets_kernel<8> : commit_buckets_kernel<0>;
+  kernel<<<blocks, kBucketThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(bucket_keys), static_cast<int32_t*>(bucket_ptr),
       static_cast<const int32_t*>(keys), static_cast<const int32_t*>(tb),
       static_cast<const int32_t*>(tw), static_cast<const int32_t*>(bptr_val),
-      batch, nb, ways, key_words);
+      unsigned(batch), int(nb), ways, key_words);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -447,10 +573,21 @@ int orca_write_rows(void* pool, const void* vals, const void* wp,
                     long long batch, long long np_rows, int val_words,
                     void* stream) {
   if (batch <= 0) return 0;
-  write_rows_kernel<<<blocks_for(batch * val_words), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (batch > kMaxBatch || np_rows < 0 || np_rows > INT_MAX ||
+      val_words <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide =
+      val_words % 4 == 0 && aligned(pool, 16) && aligned(vals, 16);
+  const int chunks = wide ? val_words / 4 : val_words;
+  int shift = 0;  // L = 1 << shift lanes a row
+  while ((1 << shift) < chunks && shift < 5) ++shift;
+  const long long lanes = batch << shift;
+  const unsigned blocks = unsigned((lanes + kRowThreads - 1) / kRowThreads);
+  auto kernel = wide ? write_rows_kernel<int4> : write_rows_kernel<int>;
+  kernel<<<blocks, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(pool), static_cast<const int32_t*>(vals),
-      static_cast<const int32_t*>(wp), batch, np_rows, val_words);
+      static_cast<const int32_t*>(wp), unsigned(batch), int(np_rows),
+      val_words, shift);
   return static_cast<int>(cudaGetLastError());
 }
 

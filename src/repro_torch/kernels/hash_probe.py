@@ -101,15 +101,13 @@ def cache_probe(cache_keys, cache_vals, cache_meta, keys, cset):
     return hit, way, vals
 
 
-def commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val,
-                   bucket_order=None):
+def commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val):
     """Scatter pass 1, IN PLACE: way ``tw[i]`` of bucket row ``tb[i]`` <-
-    (keys[i], bptr_val[i]); entries with tb == NB (the resident sentinel
-    row) write zeros. Live (tb, tw) must be unique, as the plan makes them.
-    ``bucket_order`` is accepted for parity with the TPU kernel, whose
-    in-order grid needs sorted entries; this kernel does not.
-    Returns (bucket_keys, bucket_ptr), the same tensors."""
-    del bucket_order
+    (keys[i], bptr_val[i]); way ``tw[i]`` of the resident sentinel row
+    (tb == NB) becomes zero, the sentinel's other ways keep their words.
+    Live (tb, tw) must be unique, as the plan makes them; entries outside
+    the arrays are skipped. Returns (bucket_keys, bucket_ptr), the same
+    tensors."""
     dev = keys.device
     _check("keys", keys, 2, dev)
     b, kw = keys.shape
@@ -128,12 +126,11 @@ def commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val,
     return bucket_keys, bucket_ptr
 
 
-def write_rows(pool, vals, wp, row_order=None):
-    """Scatter pass 2, IN PLACE: pool row ``wp[i]`` <- vals[i]; entries with
-    wp == NP (the resident sentinel row) write zeros. Live wp must be
-    unique. ``row_order`` is accepted for parity and not needed.
-    Returns the pool, the same tensor."""
-    del row_order
+def write_rows(pool, vals, wp):
+    """Scatter pass 2, IN PLACE: pool row ``wp[i]`` <- vals[i]; the
+    resident sentinel row NP becomes zero where some wp aims at it. Live
+    wp must be unique; wp outside the pool is skipped. Returns the pool,
+    the same tensor."""
     dev = vals.device
     _check("vals", vals, 2, dev)
     b, vw = vals.shape
@@ -156,11 +153,9 @@ def get(bucket_keys, bucket_ptr, pool, keys, h1, h2):
     return torch.where(found[:, None], vals, 0), found
 
 
-def insert(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp,
-           bucket_order=None, row_order=None):
+def insert(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp):
     """Full planned PUT commit (see ``kvstore.plan_put`` for the plan), IN
     PLACE: both scatter passes. Returns (bucket_keys, bucket_ptr, pool)."""
-    commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val,
-                   bucket_order)
-    write_rows(pool, vals, wp, row_order)
+    commit_buckets(bucket_keys, bucket_ptr, keys, tb, tw, bptr_val)
+    write_rows(pool, vals, wp)
     return bucket_keys, bucket_ptr, pool

@@ -62,18 +62,16 @@ def hash_get(bucket_keys, bucket_ptr, pool, keys, h1, h2, *, backend="auto"):
 
 
 def hash_put(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp,
-             bucket_order=None, row_order=None, *, backend="auto"):
+             *, backend="auto"):
     """Commit phase of a planned batched PUT (``kvstore.plan_put`` output),
-    IN PLACE on both backends. ``bucket_order``/``row_order`` are the
-    plan's target sort orders, which neither backend needs. Returns the
-    updated (bucket_keys, bucket_ptr, pool): the same tensors."""
+    IN PLACE on both backends. Returns the updated (bucket_keys,
+    bucket_ptr, pool): the same tensors."""
     if resolve_backend(backend, keys.device):
         return _ref.hash_put(
             bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp
         )
     return _hp.insert(
-        bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp,
-        bucket_order, row_order,
+        bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp
     )
 
 

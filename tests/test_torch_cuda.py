@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import hash_probe_cases as hpc
+import kvs_commit_cases as kcc
 from embedding_cases import COPY_BYTES, WIDTHS, edge_case, \
     plain_with_zero_rows
 from hash_probe_cases import SHAPES
@@ -232,6 +233,101 @@ def test_cache_probe_wrapper_rejects_bad_tensors(dev):
         hp.cache_probe(ck, cv, torch.zeros((5, 3), **i32), keys, cset)
     with pytest.raises(ValueError, match="CUDA tensors"):
         hp.cache_probe(ck.cpu(), cv.cpu(), cm.cpu(), keys.cpu(), cset.cpu())
+
+
+def _commit(t):
+    """Both commit kernels on a case's tensors, IN PLACE."""
+    hp.commit_buckets(t["bucket_keys"], t["bucket_ptr"], t["keys"], t["tb"],
+                      t["tw"], t["bptr_val"])
+    hp.write_rows(t["pool"], t["vals"], t["wp"])
+    torch.cuda.synchronize()
+    return t["bucket_keys"], t["bucket_ptr"], t["pool"]
+
+
+@pytest.mark.parametrize("b", kcc.BATCHES)
+@pytest.mark.parametrize("shape", kcc.SHAPES)
+@pytest.mark.parametrize("case", kcc.CASES)
+def test_commit_edge_cases_match_plain_version(dev, case, shape, b):
+    """Every commit edge case (``tests/kvs_commit_cases.py``): the kernels
+    equal the plain versions bit for bit, non-zero sentinel rows
+    included, targets outside the arrays skipped."""
+    nb, w, kw, np_, vw = shape
+    c = kcc.commit_case(case, seed=nb * 7 + vw + b, nb=nb, w=w, kw=kw,
+                        np_=np_, vw=vw, b=b)
+    _same(kcc.plain_commit(**kcc.to_torch(c)),
+          _commit(kcc.to_torch(c, dev)), f"commit {case}")
+
+
+@pytest.mark.parametrize("names", [("keys",), ("bucket_keys",), ("pool",),
+                                   ("vals",), ("keys", "vals")])
+def test_commit_unaligned_views_take_the_run_time_instances(dev, names):
+    """Arrays one word off the 8- and 16-byte grid: the entry points take
+    the run-time instances (4-byte words), with the same result."""
+    c = kcc.commit_case("some_dead", seed=6, nb=64, w=8, kw=2, np_=400,
+                        vw=16, b=300)
+    t = kcc.to_torch(c, dev)
+    for name in names:
+        t[name] = _unaligned(t[name])
+    _same(kcc.plain_commit(**kcc.to_torch(c)), _commit(t),
+          f"commit, {names} unaligned")
+
+
+def _loaded_store(dev, n_keys, b, put_share, seed):
+    """A store of 2^14 buckets x 8 ways and 2^17 64-byte rows with
+    ``n_keys`` keys loaded, and a planned batch of ``b`` requests on it:
+    loaded and fresh keys, PUT where a draw falls under ``put_share`` (the
+    rest masked, as ``app_step`` masks GETs). Returns (state, keys, vals,
+    plan)."""
+    cfg = kv.KVConfig(num_buckets=1 << 14, ways=8, key_words=2,
+                      val_words=16, pool_size=1 << 17)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state = kv.make(cfg, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    loaded = torch.randint(-2**31, 2**31 - 1, (n_keys, 2), generator=g,
+                           **i32)
+    state, _ = kv.put(state, loaded, torch.randint(
+        -999, 999, (n_keys, 16), generator=g, **i32), backend="ref")
+    keys = torch.where(
+        (torch.rand((b, 1), generator=g, device=dev) < 0.5),
+        loaded[torch.randint(0, n_keys, (b,), generator=g, device=dev)],
+        torch.randint(-2**31, 2**31 - 1, (b, 2), generator=g, **i32))
+    vals = torch.randint(-2**31, 2**31 - 1, (b, 16), generator=g, **i32)
+    mask = torch.rand((b,), generator=g, device=dev) < put_share
+    return state, keys, vals, kv.plan_put(state, keys, mask, backend="ref")
+
+
+@pytest.mark.parametrize("b,put_share", [(256, 0.05), (65536, 1.0)])
+def test_commit_at_the_serve_mix_and_the_load_batch(dev, b, put_share):
+    """The engine's batch with 5% PUTs (about 244 of 256 entries dead) and
+    the load phase's 65,536 fresh and loaded keys: the kernels equal the
+    plain versions bit for bit on the planned batch."""
+    state, keys, vals, plan = _loaded_store(dev, 20000, b, put_share, b)
+    dead = int((plan.tb == state.num_buckets).sum())
+    assert (dead > 0.9 * b) if put_share < 1 else (dead < b)
+    bk, bp, pool = (x.clone() for x in (state.bucket_keys, state.bucket_ptr,
+                                        state.pool))
+    ref.commit_buckets(bk, bp, keys, plan.tb, plan.tw, plan.bptr_val)
+    ref.write_rows(pool, vals, plan.wp)
+    got = (state.bucket_keys, state.bucket_ptr, state.pool)
+    hp.commit_buckets(*got[:2], keys, plan.tb, plan.tw, plan.bptr_val)
+    hp.write_rows(got[2], vals, plan.wp)
+    torch.cuda.synchronize()
+    _same((bk, bp, pool), got, f"commit at B = {b}")
+
+
+def test_commits_refuse_a_batch_past_their_lane_index(dev):
+    """2^26 + 1 entries: past the commits' 32-bit lane index, so the C
+    entry points refuse the launch and the wrappers raise."""
+    b = (1 << 26) + 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    ids = torch.zeros((b,), **i32)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hp.commit_buckets(torch.zeros((5, 8, 2), **i32),
+                          torch.zeros((5, 8), **i32),
+                          torch.zeros((b, 2), **i32), ids, ids, ids)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hp.write_rows(torch.zeros((5, 16), **i32),
+                      torch.zeros((b, 16), **i32), ids)
 
 
 @pytest.mark.parametrize("cache_sets", [0, 16])
