@@ -3,8 +3,8 @@
 
 Drives the port's three request apps — the KVS, chain-replicated
 transactions (TX) and DLRM inference — and paged LM serving of
-Qwen2.5-14B through the ORCA engine and the hand-written CUDA kernels, at
-deployment sizes, with the fault and durability layer (fault injection,
+Qwen2.5-14B and Qwen3-MoE-30B-A3B through the ORCA engine and the
+hand-written CUDA kernels, at deployment sizes, with the fault and durability layer (fault injection,
 chain failover, snapshots, the WAL and crash recovery) on the TX, KVS and
 LM paths, and holds every kernel against its plain PyTorch version.
 
@@ -78,8 +78,10 @@ Phases, each printing one JSON line:
                   of 16-token pages, 8 prompts of 512 tokens, 40 q / 8 kv
                   heads), bf16 and f32, flash also with window 128, and
                   the paged walk over 4 sequences of 16,384 tokens (bf16);
-                  each with its library call's device time where there is
-                  one, the paged cases with their split count;
+                  both again at the MoE model's heads (32 q / 4 kv, so
+                  G = 8, the paged kernel's largest group), bf16; each
+                  with its library call's device time where there is one,
+                  the paged cases with their split count;
 15. lm_serve_f32 — Qwen2.5-14B at full width cut to 4 layers, f32: the
                   kernel engine and the plain engine give equal token
                   streams and page pools within 1e-5 of each layer's scale;
@@ -94,7 +96,13 @@ Phases, each printing one JSON line:
                   engine (free-running agreement, reported), a
                   teacher-forced check over 40 decode steps that must
                   decide at least 10% (and 64) of its rows with equal
-                  argmax, and a per-layer walk check of the live pool.
+                  argmax, and a per-layer walk check of the live pool;
+18. lm_moe_serve — the same for Qwen3-MoE-30B-A3B, all 48 layers at full
+                  width in bf16 (128 experts, top 8; 61 GB of weights),
+                  after the dense weights are freed: the same engine and
+                  requests, the same checks, and the share of (token,
+                  layer) top-8 expert sets on which the kernel and plain
+                  paths agree in the teacher-forced window (reported).
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch raises and exits non-zero before the last line. Without a
@@ -182,6 +190,14 @@ LM_F32_LAYERS, LM_F32_REQUESTS = 4, 32
 # at the serve head geometry (268 MB), where one CTA per (sequence, kv
 # head) would be only 32 CTAs
 LM_LONG = (4, 16384)
+# MoE LM serving: Qwen3-MoE-30B-A3B at its full width (src/repro_torch/
+# configs/qwen3_moe_30b_a3b.py: 48 layers, d_model 2048, 32 q / 4 kv heads,
+# hd 128, 128 experts top-8 of expert ff 768, vocab 151936, bf16), random
+# weights from the seed, through lm_serve's engine; its attention shapes
+# (G = 8) in lm_kernels
+LM_MOE_ARCH = "qwen3-moe-30b-a3b"
+LM_MOE_REQUESTS = 48  # cut from lm_serve's 96 to keep the script's time
+LM_MOE_HEADS = (32, 4)
 LM_SNAPSHOT_STEP = 24  # the engine step the teacher-forced check starts at
 LM_TF_STEPS = 40  # teacher-forced decode steps (at least 32)
 # the profiled window: a copy of the engine state after this step runs the
@@ -1944,14 +1960,15 @@ def float_entry(torch, name, outs_k, outs_p, k_fn, p_fn, tol, nbytes, flops,
     }
 
 
-def lm_pool_inputs(torch, np, dtype, seed, seqs=None, tokens=None):
+def lm_pool_inputs(torch, np, dtype, seed, seqs=None, tokens=None, kvh=8,
+                   g=5):
     """A pool and page table as the serve engine's decode steps see them:
     32 sequences mid-generation (512-639 tokens) on random pages of a
     1,280-page pool (32 slots x 40 pages) plus the zero sentinel, the
-    rest of each table row -1; q pre-scaled f32 (32, 8, 5, 128). With
-    ``seqs`` and ``tokens``: that many sequences of exactly that many
-    tokens, at the same head geometry."""
-    b, kvh, g, hd = seqs or LM_ENGINE["slots"], 8, 5, 128
+    rest of each table row -1; q pre-scaled f32 (32, kvh, g, 128), by
+    default Qwen2.5-14B's 8 kv heads of 5. With ``seqs`` and ``tokens``:
+    that many sequences of exactly that many tokens."""
+    b, hd = seqs or LM_ENGINE["slots"], 128
     ps = LM_ENGINE["page_size"]
     maxp = -(-(LM_ENGINE["prompt_len"] + LM_ENGINE["gen_len"] - 1) // ps)
     if tokens:
@@ -2001,13 +2018,17 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
     the paged stats walk on a bf16 and an f32 pool (and its split count),
     plus 4 sequences of 16,384 tokens on a bf16 pool, flash prefill
     attention (8 prompts of 512 tokens, 40 q / 8 kv heads) in bf16 and
-    f32, and windowed (128). Returns the bf16 entries of the main path."""
+    f32, and windowed (128); and both in bf16 at the MoE model's heads
+    (32 q / 4 kv). Returns the bf16 entries of the dense main path."""
     out, entries = {"phase": "lm_kernels", "nvidia_smi": smi}, {}
-    for key, dt, seqs, tokens in (
-            ("bfloat16", torch.bfloat16, None, None),
-            ("float32", torch.float32, None, None),
-            ("long_bfloat16", torch.bfloat16, *LM_LONG)):
-        args = lm_pool_inputs(torch, np, dt, SEED + 20, seqs, tokens)
+    h_moe, kvh_moe = LM_MOE_HEADS
+    for key, dt, seqs, tokens, heads in (
+            ("bfloat16", torch.bfloat16, None, None, (8, 5)),
+            ("float32", torch.float32, None, None, (8, 5)),
+            ("long_bfloat16", torch.bfloat16, *LM_LONG, (8, 5)),
+            ("moe_bfloat16", torch.bfloat16, None, None,
+             (kvh_moe, h_moe // kvh_moe))):
+        args = lm_pool_inputs(torch, np, dt, SEED + 20, seqs, tokens, *heads)
         q, kp, vp, table, lengths = args
         b, kvh, g, hd = q.shape
         dtype_name = str(dt).rsplit(".", 1)[-1]
@@ -2023,6 +2044,7 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
             lambda: ref.paged_attention_stats(*args), LM_TOL[dtype_name],
             nbytes, flops, dtype_name)
         e["tokens"] = tokens
+        e["kv_heads_group"] = (kvh, g)
         e["splits"] = pa.splits(table.shape[1], kp.shape[1])
         if dt == torch.bfloat16:
             e["device_us_by_splits"] = paged_split_sweep(torch, pa, args)
@@ -2031,13 +2053,15 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
             entries["paged_attention_stats"] = e
         del args, q, kp, vp
         torch.cuda.empty_cache()
-    b, h, kvh, s, hd = 8, 40, 8, LM_ENGINE["prompt_len"], 128
+    b, s, hd = 8, LM_ENGINE["prompt_len"], 128
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    for key, dt in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+    for key, dt, h, kvh in (("bfloat16", torch.bfloat16, 40, 8),
+                            ("float32", torch.float32, 40, 8),
+                            ("moe_bfloat16", torch.bfloat16, h_moe, kvh_moe)):
         q = torch.randn((b, h, s, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, kvh, s, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, kvh, s, hd), generator=gen, device="cuda").to(dt)
-        for window in (0, 128):
+        for window in ((0,) if key.startswith("moe") else (0, 128)):
             pos = torch.arange(s, device="cuda")
             keys = torch.minimum(pos + 1, torch.full_like(pos, window)) \
                 if window else pos + 1
@@ -2053,15 +2077,16 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
                 return F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True)
 
-            tol = FLASH_F32_TOL if key == "float32" else LM_TOL[key]
+            tol = FLASH_F32_TOL if key == "float32" else LM_TOL["bfloat16"]
             e = float_entry(
                 torch, "flash_attention",
                 (fa.flash_attention(q, k, v, window=window),),
                 (ref.flash_attention(q, k, v, window=window),),
                 lambda: fa.flash_attention(q, k, v, window=window),
                 lambda: ref.flash_attention(q, k, v, window=window), tol,
-                nbytes, flops, key, lib)
+                nbytes, flops, str(dt).rsplit(".", 1)[-1], lib)
             e["window"] = window
+            e["heads"] = (h, kvh)
             out[f"flash_{key}_window{window}"] = e
             if key == "bfloat16" and not window:
                 entries["flash_attention"] = e
@@ -2072,6 +2097,9 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
            if isinstance(v, dict) and v["mismatches"]}
     if bad:
         raise AssertionError(f"lm_kernels: kernels outside tolerance: {bad}")
+    entries["paged_attention_stats"]["moe_shape"] = out["paged_moe_bfloat16"]
+    entries["flash_attention"]["moe_shape"] = out[
+        "flash_moe_bfloat16_window0"]
     return entries
 
 
@@ -2133,10 +2161,11 @@ def lm_responses(np, rb, state, caps, nq):
     return out
 
 
-def lm_setup(torch, cfg_mod, model, ctx, **kw):
-    cfg = cfg_mod.get_config(LM_ARCH).replace(use_pallas_flash=True, **kw)
+def lm_setup(torch, cfg_mod, model, ctx, arch=LM_ARCH, seed=SEED + 30,
+             **kw):
+    cfg = cfg_mod.get_config(arch).replace(use_pallas_flash=True, **kw)
     t0 = time.perf_counter()
-    params = model.init_params(SEED + 30, cfg, ctx, "cuda")
+    params = model.init_params(seed, cfg, ctx, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
@@ -2208,26 +2237,55 @@ def phase_lm_serve_f32(torch, np, eng, rb, cfg_mod, model, pa, fa, ctx, smi):
     torch.cuda.empty_cache()
 
 
-def lm_teacher_forced(torch, model, pk, params, cfg, ctx, pcfg, snap):
+def decode_routed(model, moe, box, *args, **kw):
+    """``model.paged_decode_step(*args, **kw)``; with ``moe`` (the MoE
+    module), each layer's routed expert ids are appended to ``box``."""
+    if moe is None:
+        return model.paged_decode_step(*args, **kw)
+    route = moe._route
+
+    def recording(params, x_flat, cfg):
+        out = route(params, x_flat, cfg)
+        box.append(out[1])
+        return out
+
+    moe._route = recording
+    try:
+        return model.paged_decode_step(*args, **kw)
+    finally:
+        moe._route = route
+
+
+def lm_teacher_forced(torch, model, pk, params, cfg, ctx, pcfg, snap,
+                      moe=None):
     """At each of LM_TF_STEPS decode steps, the kernel path and the plain
     path decode the same tokens from clones of the same pool; the kernel
     path's tokens feed the next step. A row is decided when the plain
     logits' top-2 margin exceeds twice that row's largest |Δlogit|; argmax
-    must agree on every decided row, and enough rows must be decided."""
+    must agree on every decided row, and enough rows must be decided.
+    With ``moe`` (the MoE module), also the share of (row, layer) top-k
+    expert sets that the two paths share (reported)."""
     kv, toks, active = snap
     v = cfg.vocab_size
     seen = decided = agree = agree_all = 0
+    sets, sets_equal = 0, [0] * cfg.num_layers
     max_d, stds, ratios = 0.0, [], []
     for _ in range(LM_TF_STEPS):
         kv_ref = pk.clone(kv)
-        kv, lk, ok = model.paged_decode_step(params, toks, kv, pcfg, cfg,
-                                             ctx, active=active,
-                                             kernel_backend="cuda")
-        _, lp, _ = model.paged_decode_step(params, toks, kv_ref, pcfg, cfg,
-                                           ctx, active=active,
-                                           kernel_backend="ref")
+        routes = ([], [])
+        kv, lk, ok = decode_routed(model, moe, routes[0], params, toks, kv,
+                                   pcfg, cfg, ctx, active=active,
+                                   kernel_backend="cuda")
+        _, lp, _ = decode_routed(model, moe, routes[1], params, toks, kv_ref,
+                                 pcfg, cfg, ctx, active=active,
+                                 kernel_backend="ref")
         del kv_ref
         rows = active & ok
+        for i, (ik, ip) in enumerate(zip(*routes)):
+            same = (ik[rows].sort(dim=-1).values
+                    == ip[rows].sort(dim=-1).values).all(dim=-1)
+            sets += int(same.numel())
+            sets_equal[i] += int(same.sum())
         a, b = lk[rows, :v], lp[rows, :v]
         d = (a - b).abs().amax(dim=-1)
         top2 = b.topk(2, dim=-1).values
@@ -2250,6 +2308,11 @@ def lm_teacher_forced(torch, model, pk, params, cfg, ctx, pcfg, snap):
            "logit_std_mean": sum(stds) / len(stds),
            "max_logit_diff_over_std": max(ratios),
            "required": {"share": LM_DECIDED_SHARE, "rows": LM_DECIDED_MIN}}
+    if moe is not None:
+        out["expert_sets"] = sets
+        out["expert_sets_equal_share"] = sum(sets_equal) / max(sets, 1)
+        out["expert_sets_equal_share_by_layer"] = [
+            n * cfg.num_layers / max(sets, 1) for n in sets_equal]
     return out, kv
 
 
@@ -2283,14 +2346,14 @@ def lm_profile(torch, eng, pa, fa, ecfg, cfg, ctx, params, state):
             "top_kernels_us_per_step": {k[:90]: us for k, (us, _) in top}}
 
 
-def lm_walk_check(torch, pa, ref, kv, seed):
+def lm_walk_check(torch, pa, ref, kv, seed, g):
     """Every layer's page slice of a live pool through the stats kernel
-    and its plain version on the same pre-scaled q: the normalised
-    outputs within the bf16 tolerance."""
+    and its plain version on the same pre-scaled q of ``g`` rows a kv
+    head: the normalised outputs within the bf16 tolerance."""
     b = kv.lengths.shape[0]
     kvh, hd = kv.k_pages.shape[3], kv.k_pages.shape[4]
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, kvh, 5, hd), generator=gen, device="cuda") * hd ** -0.5
+    q = torch.randn((b, kvh, g, hd), generator=gen, device="cuda") * hd ** -0.5
     worst = 0.0
     for i in range(kv.k_pages.shape[0]):
         args = (q, kv.k_pages[i], kv.v_pages[i], kv.page_table, kv.lengths)
@@ -2306,16 +2369,21 @@ def lm_walk_check(torch, pa, ref, kv, seed):
 
 
 def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
-                   smi):
-    """All 48 layers in bf16 with the flash prefill, 96 requests through
-    the kernel engine (the main path: its launch counts), then the plain
-    engine for free-running agreement (reported, not asserted), the
-    teacher-forced check from a snapshot of the kernel run's pool, and the
-    per-layer walk check. Returns the kernel run's launch counts."""
+                   smi, phase="lm_serve", arch=LM_ARCH, requests=LM_REQUESTS,
+                   seed=SEED + 30, moe=None):
+    """All 48 layers of ``arch`` in bf16 with the flash prefill,
+    ``requests`` requests through the kernel engine (the main path: its
+    launch counts), then the plain engine for free-running agreement
+    (reported, not asserted), the teacher-forced check from a snapshot of
+    the kernel run's pool (with ``moe``, the MoE module, also the share of
+    expert sets the two paths agree on), and the per-layer walk check.
+    Frees the weights and returns the kernel run's launch counts."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
-    cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx)
-    prompts, caps = lm_requests(np, cfg, LM_REQUESTS, SEED + 32)
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx, arch,
+                                           seed)
+    prompts, caps = lm_requests(np, cfg, requests, seed + 2)
     ecfg = eng.LMEngineConfig(**LM_ENGINE, kernel_backend="auto")
     pcfg = eng.lm_paged_kv_config(ecfg, cfg, ctx)
     snap, prof, flash_seen = {}, {}, []
@@ -2348,7 +2416,7 @@ def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
     state, t_p = lm_serve_run(torch, eng, cfg, ctx, params, plain_cfg,
                               prompts, caps)
     if any(pa.launches.values()) or any(fa.launches.values()):
-        raise AssertionError("lm_serve: the plain engine launched kernels")
+        raise AssertionError(f"{phase}: the plain engine launched kernels")
     resp_p = lm_responses(np, rb, state, caps, ecfg.num_queues)
     del state
     torch.cuda.empty_cache()
@@ -2356,8 +2424,9 @@ def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
     total_tokens = sum(len(v) for v in resp_k.values())
 
     tf, kv = lm_teacher_forced(torch, model, pk, params, cfg, ctx, pcfg,
-                               snap.pop("v"))
-    tf.update(lm_walk_check(torch, pa, ref, kv, SEED + 33))
+                               snap.pop("v"), moe)
+    tf.update(lm_walk_check(torch, pa, ref, kv, seed + 3,
+                            cfg.num_heads // cfg.num_kv_heads))
     del kv
     torch.cuda.empty_cache()
     step_us = statistics.median(t_k) * 1e6
@@ -2373,14 +2442,18 @@ def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
     prof["admission_steps"] = sum(win_adm)
     t_dec = [t for t, a in zip(t_k, adm) if not a]
     t_adm = [t for t, a in zip(t_k, adm) if a]
-    out = {"phase": "lm_serve", "nvidia_smi": smi, "arch": LM_ARCH,
+    out = {"phase": phase, "nvidia_smi": smi, "arch": arch,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": (cfg.num_heads, cfg.num_kv_heads),
+           "experts": (cfg.num_experts, cfg.num_experts_per_tok,
+                       cfg.capacity_factor),
            "dtype": cfg.dtype, "use_pallas_flash": cfg.use_pallas_flash,
+           "allocated_gb_at_start": start_gb,
            "params_gb": pbytes / 1e9, "init_s": init_s,
            "pool_gb": 2 * pcfg.layers * (pcfg.num_pages + 1) * pcfg.page_size
            * pcfg.kv_heads * pcfg.head_dim * 2 / 1e9,
            "peak_gb": peak / 1e9, "engine": LM_ENGINE,
-           "requests": LM_REQUESTS, "generated_tokens": total_tokens,
+           "requests": requests, "generated_tokens": total_tokens,
            "steps": steps, "admission_steps": len(t_adm),
            "token_agreement_auto_vs_ref": same / max(total_tokens, 1),
            "teacher_forced": tf, "launches": launches,
@@ -2401,13 +2474,13 @@ def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
     emit(out)
     need = max(LM_DECIDED_SHARE * tf["rows"], LM_DECIDED_MIN)
     if tf["rows_decided"] < need:
-        raise AssertionError(f"lm_serve: {tf['rows_decided']} of "
+        raise AssertionError(f"{phase}: {tf['rows_decided']} of "
                              f"{tf['rows']} teacher-forced rows decided, "
                              f"fewer than {need}")
     if tf["argmax_equal_where_decided"] != tf["rows_decided"]:
-        raise AssertionError("lm_serve: argmax differs on a decided row")
+        raise AssertionError(f"{phase}: argmax differs on a decided row")
     if not all(launches.values()):
-        raise AssertionError(f"lm_serve: kernels not launched: {launches}")
+        raise AssertionError(f"{phase}: kernels not launched: {launches}")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -2439,7 +2512,7 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.kernels import tx_commit as tc
-    from repro_torch.models import model
+    from repro_torch.models import model, moe
     from repro_torch.parallel.sharding import local_context
     from repro_torch.serving import kv_cache as pk
 
@@ -2511,8 +2584,15 @@ def main() -> int:
                            ctx, smi)
     launches = phase_lm_serve(torch, np, eng, rb, lm_configs, model, pk, pa,
                               fa, ref, ctx, smi)
+    # the dense weights are freed: the MoE model's 61 GB take their place
+    moe_launches = phase_lm_serve(
+        torch, np, eng, rb, lm_configs, model, pk, pa, fa, ref, ctx, smi,
+        phase="lm_moe_serve", arch=LM_MOE_ARCH, requests=LM_MOE_REQUESTS,
+        seed=SEED + 35, moe=moe)
     for name, e in lm_entries.items():
-        e["launches"] = launches[name] + crash["launches"][name]
+        e["launches"] = (launches[name] + crash["launches"][name]
+                         + moe_launches[name])
+        e["moe_shape"]["launches"] = moe_launches[name]
     entries.update(lm_entries)
 
     dead = [k for k, e in entries.items() if not e["launches"]]

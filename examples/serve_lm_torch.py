@@ -6,6 +6,10 @@ through the CUDA paged-attention kernel.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --paged     # one GPU
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
+    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --paged \
+        --arch qwen3-moe-30b-a3b                                  # MoE
+
+``--arch`` serves that config's reduced form (dense or MoE families).
 
 The fault and durability flags pass through to ``repro_torch.launch.serve``:
 ``--inject-faults SEED``, ``--snapshot-dir DIR``, ``--snapshot-every N``,

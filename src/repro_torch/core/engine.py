@@ -472,7 +472,8 @@ def lm_engine_step(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
     slots (prefill). ``cfg.paged`` selects the decode substrate: dense
     per-slot ring caches (``prefill_fn``/``decode_fn`` required) or the
     shared page pool (``prefill_fn`` optionally overrides
-    ``models.prefill_kv``)."""
+    ``models.prefill_kv``; it gets the admitted prompts only, so for an
+    MoE model it must size the capacity from the padded batch itself)."""
     if cfg.paged:
         return _lm_step_paged(state, cfg, model_cfg, ctx, params, prefill_fn)
     if prefill_fn is None or decode_fn is None:
@@ -677,14 +678,18 @@ def _lm_step_paged(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
     # admit_ok is a prefix of the batch: prefill only those prompts (one
     # host read per step). JAX prefills the whole padded batch, because
     # its step is one jitted program of static shapes; the admitted rows
-    # are the same either way.
+    # are the same either way. An MoE block's capacity depends on the
+    # token count, so it is sized from the padded batch's: the prefix
+    # comes first in token order and the dispatch sort is stable, so every
+    # admitted assignment keeps JAX's slot and keep.
     n_adm = int(admit_ok.sum())
     adm_next = torch.zeros_like(slot_ids)
     if n_adm:
         if prefill_fn is None:
             adm_k, adm_v, adm_logits = prefill_kv(
                 params, prompts[:n_adm].to(I32), model_cfg, ctx,
-                kernel_backend=cfg.kernel_backend)
+                kernel_backend=cfg.kernel_backend,
+                capacity_tokens=cfg.admit_per_step * cfg.prompt_len)
         else:
             adm_k, adm_v, adm_logits = prefill_fn(params,
                                                   prompts[:n_adm].to(I32))

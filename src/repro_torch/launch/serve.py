@@ -8,8 +8,9 @@ in response rings → clients poll and return credit.
     PYTHONPATH=src python -m repro_torch.launch.serve --paged   # on a GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
-It serves the reduced (tiny, f32) config of ``--arch`` with random
-weights from ``--seed``. The fault and durability flags are the JAX
+It serves the reduced (tiny, f32) config of ``--arch`` (a dense or MoE
+config, e.g. ``--arch qwen3-moe-30b-a3b``) with random weights from
+``--seed``. The fault and durability flags are the JAX
 launcher's: ``--inject-faults SEED`` drives the request path through a
 seeded ``fault.FaultInjector``; ``--snapshot-dir`` / ``--snapshot-every``
 / ``--durability-mode`` flush the paged engine (and its host cold tier)

@@ -1,6 +1,7 @@
-"""The LM: layers, attention, the dense decoder stack, and the model's
-prefill/decode entry points over either decode substrate (dense per-slot
-ring caches, or the shared page pool of ``serving.kv_cache``)."""
+"""The LM: layers, attention, MoE, the dense and MoE decoder stack, and
+the model's prefill/decode entry points over either decode substrate
+(dense per-slot ring caches, or the shared page pool of
+``serving.kv_cache``)."""
 from repro_torch.models.model import (
     DecodeState,
     check_paged_support,

@@ -1,5 +1,5 @@
 """Top-level LM: init, prefill and decode (dense per-slot ring caches, or
-the shared page pool), dense family."""
+the shared page pool), dense and MoE families."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
@@ -167,15 +167,19 @@ def paged_decode_step(params, tokens, kv, pcfg, cfg: ModelConfig,
 
 
 def prefill_kv(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
-               chunk: int = 512, kernel_backend: Optional[str] = "auto"):
+               chunk: int = 512, kernel_backend: Optional[str] = "auto",
+               capacity_tokens: Optional[int] = None):
     """Direct paged prefill: the prompt kv comes straight off the layers
     (``stack_apply(emit_kv=True)``), never staged in a dense cache.
     Returns (k (L, B, S, kvp, hd), v, last_logits (B, V)); the engine
-    writes k/v into the pool (``kv_cache.prefill_into_pages``)."""
+    writes k/v into the pool (``kv_cache.prefill_into_pages``).
+    ``capacity_tokens`` sizes the MoE capacity from that token count in
+    place of B x S (the engine passes its padded admission batch's)."""
     check_paged_support(cfg)
     plan = tf.plan_for(cfg, ctx)
     h = shard(embed_apply(params["embed"], tokens, cfg), ctx)
     h, kvs = tf.stack_apply(
         params["layers"], h, cfg, plan, ctx, _positions_for(tokens),
-        chunk=chunk, emit_kv=True, backend=kernel_backend)
+        chunk=chunk, emit_kv=True, backend=kernel_backend,
+        capacity_tokens=capacity_tokens)
     return kvs["k"], kvs["v"], _head(params, h[:, -1:], cfg)[:, 0]

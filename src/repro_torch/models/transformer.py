@@ -1,10 +1,10 @@
-"""Decoder blocks and the layer stack, dense family.
+"""Decoder blocks and the layer stack, dense and MoE families.
 
 The JAX package scans one block over L-stacked parameters; here the
 stacked layout is kept (every leaf of ``params["layers"]`` has a leading
 L dimension, so parameters cross from JAX unchanged) and the scan is a
 Python loop over layer views. The other families (recurrent state,
-experts, M-RoPE and codebook front ends) are not ported yet and raise
+M-RoPE and codebook front ends) are not ported yet and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     dtype_of, mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
 )
@@ -28,11 +29,11 @@ def plan_for(cfg: ModelConfig, ctx: ParallelContext) -> HeadPlan:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The port runs the dense attention family only, so far."""
-    if cfg.family != "dense":
+    """The port runs the dense and MoE attention families, so far."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(dense decoder blocks only)"
+            "(dense and MoE decoder blocks only)"
         )
 
 
@@ -44,12 +45,16 @@ def block_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
     check_family(cfg)
     dt = dtype_of(cfg.dtype)
     d = cfg.d_model
-    return {
+    p = {
         "ln1": rmsnorm_init(d, dt, device),
         "attn": attn_mod.attn_init(gen, cfg, plan, device),
         "ln2": rmsnorm_init(d, dt, device),
-        "mlp": mlp_init(gen, cfg, device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_mod.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, device)
+    return p
 
 
 def _map(fn, *trees):
@@ -243,7 +248,8 @@ def _ring_prefill_write(state, k, v, cfg, start_pos=0):
 def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
                 ctx: ParallelContext, positions, state: Optional[dict] = None,
                 *, chunk: int = 512, paged: Optional[PagedAux] = None,
-                emit_kv: bool = False, backend: Optional[str] = "auto"):
+                emit_kv: bool = False, backend: Optional[str] = "auto",
+                capacity_tokens: Optional[int] = None):
     """One decoder block. Returns (y, new_state).
 
     The mode is inferred: ``state is None`` -> stateless forward;
@@ -252,7 +258,10 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
     ({"kp","vp"}) walked through the page table. ``emit_kv`` (stateless
     prefill) returns the layer's raw prompt {"k","v"} for direct landing
     in pages. ``backend`` routes the flash prefill kernel
-    (``use_pallas_flash``): auto | cuda | ref.
+    (``use_pallas_flash``): auto | cuda | ref. An MoE block runs with
+    ``no_drop`` when decoding, and sizes its capacity from
+    ``capacity_tokens`` when given (``moe.moe_apply``); its aux loss is
+    dropped (serving).
     """
     check_family(cfg)
     S = x.shape[1]
@@ -297,7 +306,12 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
 
     x = x + att
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(params["mlp"], h2, cfg.act), new_state
+    if cfg.is_moe:
+        y2, _ = moe_mod.moe_apply(params["moe"], h2, cfg, no_drop=decode,
+                                  capacity_tokens=capacity_tokens)
+    else:
+        y2 = mlp_apply(params["mlp"], h2, cfg.act)
+    return x + y2, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +334,8 @@ def stack_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
 def stack_apply(layers, x, cfg: ModelConfig, plan: HeadPlan,
                 ctx: ParallelContext, positions, states=None, *,
                 chunk: int = 512, paged: Optional[PagedAux] = None,
-                emit_kv: bool = False, backend: Optional[str] = "auto"):
+                emit_kv: bool = False, backend: Optional[str] = "auto",
+                capacity_tokens: Optional[int] = None):
     """Apply the blocks in order over the stacked layer params (and
     states when decoding). Returns (y, new_states).
 
@@ -328,14 +343,16 @@ def stack_apply(layers, x, cfg: ModelConfig, plan: HeadPlan,
     holds the L-stacked pages {"kp","vp"}, each layer reads its slice, and
     the returned states are only each layer's new {"k_new","v_new"}
     (L, B, kvp, hd) for the caller's one batched append. ``emit_kv``
-    (stateless prefill) returns each layer's raw prompt {"k","v"}."""
+    (stateless prefill) returns each layer's raw prompt {"k","v"};
+    ``capacity_tokens`` goes to every MoE block."""
     outs = []
     h = x
     for i in range(cfg.num_layers):
         st = None if states is None else layer(states, i)
         h, new_st = block_apply(
             layer(layers, i), h, cfg, plan, ctx, positions, st, chunk=chunk,
-            paged=paged, emit_kv=emit_kv, backend=backend)
+            paged=paged, emit_kv=emit_kv, backend=backend,
+            capacity_tokens=capacity_tokens)
         outs.append(new_st)
     new_states = stack(outs) if outs[0] is not None else None
     decode = states is not None and x.shape[1] == 1

@@ -944,6 +944,171 @@ def test_lm_engine_kernels_equal_plain_on_the_card(dev):
                                rtol=1e-5, atol=1e-5)
 
 
+# ------------------------------ MoE serving ---------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+
+
+def test_attention_kernels_at_the_moe_serve_shapes(dev):
+    """Both attention kernels at Qwen3-MoE-30B-A3B's serve shapes, bf16:
+    the paged walk at B = 32, KVH = 4, G = 8 (= MAX_GROUP, a warp a query
+    row) on 40-page tables of 16-token pages, and the flash prefill at
+    B = 8, H = 32, KVH = 4, S = 512, hd 128."""
+    assert pa.MAX_GROUP == 8
+    rng = np.random.default_rng(32)
+    maxp, ps = 40, 16
+    lengths = rng.integers(512, maxp * ps, 32)
+    lengths[:3] = (0, maxp * ps, 1)
+    host, cuda = _paged_case(rng, dev, torch.bfloat16, 32, 4, 8, 128, ps,
+                             maxp, lengths)
+    want = ref.paged_attention_stats(*host)
+    pa.reset_launches()
+    got = pa.paged_attention_stats(*cuda)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_attention_stats"] == 1
+    tol = LM_TOL[torch.bfloat16]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+    host = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(torch.bfloat16) for shape in ((8, 32, 512, 128),
+                                              (8, 4, 512, 128),
+                                              (8, 4, 512, 128))]
+    want = ref.flash_attention(*host)
+    fa.reset_launches()
+    got = fa.flash_attention(*(t.to(dev) for t in host))
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_moe_apply_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """One Qwen3-MoE-30B-A3B layer's experts at full width (128 experts,
+    top 8, d 2048, expert ff 768, bf16, f32 router), 128 tokens (a
+    capacity of 16 an expert): the card's ``moe_apply`` against the same
+    call on the CPU,
+    routes equal where the 8th and 9th gates are apart, outputs within the
+    bf16 tolerance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config(MOE_ARCH)
+    gen = torch.Generator().manual_seed(0)
+    params = moe.moe_init(gen, cfg, "cpu")
+    x = torch.randn((2, 64, cfg.d_model), generator=gen).to(torch.bfloat16)
+    gp = {k: v.to(dev) for k, v in params.items()}
+    want, want_aux = moe.moe_apply(params, x, cfg)
+    got, got_aux = moe.moe_apply(gp, x.to(dev), cfg)
+    _, ids_c, _ = moe._route(params, x.reshape(-1, cfg.d_model), cfg)
+    _, ids_g, _ = moe._route(gp, x.to(dev).reshape(-1, cfg.d_model), cfg)
+    gates = torch.softmax(x.reshape(-1, cfg.d_model).float()
+                          @ params["router"], dim=-1)
+    top = gates.sort(dim=-1, descending=True).values
+    k = cfg.num_experts_per_tok
+    clear = (top[:, k - 1] - top[:, k]) > 1e-5
+    assert int(clear.sum()) > 100
+    assert torch.equal(ids_g.cpu()[clear], ids_c[clear])
+    tol = LM_TOL[torch.bfloat16]
+    rows = clear.reshape(2, 64)
+    torch.testing.assert_close(got.cpu().float()[rows], want.float()[rows],
+                               rtol=tol, atol=tol)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+def _moe_prefill_and_decode(cfg, ctx, params, toks, dev, steps=4):
+    """prefill_kv into a fresh pool, then ``steps`` greedy paged decode
+    steps through the kernels; returns every logit and the pools."""
+    from repro_torch.models import model
+    from repro_torch.serving import kv_cache as pk
+
+    pcfg = model.make_paged_kv_config(cfg, ctx, num_pages=32, page_size=16,
+                                      max_pages_per_seq=8)
+    kv = pk.make(pcfg, toks.shape[0], torch.bfloat16, dev)
+    k, v, logits = model.prefill_kv(params, toks, cfg, ctx,
+                                    kernel_backend="cuda")
+    slots = torch.arange(toks.shape[0], dtype=torch.int32, device=dev)
+    kv, _ = pk.prefill_into_pages(kv, pcfg, slots, k, v,
+                                  torch.ones_like(slots, dtype=torch.bool))
+    outs = [logits]
+    nxt = logits.argmax(-1).to(torch.int32)
+    for _ in range(steps):
+        kv, logits, _ = model.paged_decode_step(params, nxt, kv, pcfg, cfg,
+                                                ctx, kernel_backend="cuda")
+        outs.append(logits)
+        nxt = logits.argmax(-1).to(torch.int32)
+    return outs, kv
+
+
+def test_moe_prefill_and_decode_are_bit_reproducible(dev):
+    """Qwen3-MoE-30B-A3B at full width cut to 2 layers, bf16, flash
+    prefill (2 prompts of 64 tokens, with drops) and 4 paged decode steps
+    through both kernels, twice from the same inputs: every logit and the
+    pools equal bit for bit (the combine adds the k expert outputs in
+    order, never by atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import local_context
+
+    cfg = get_config(MOE_ARCH).replace(num_layers=2, use_pallas_flash=True,
+                                       flash_block=64)
+    ctx = local_context()
+    params = init_params(0, cfg, ctx, dev)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        1, cfg.vocab_size, (2, 64)).astype(np.int32)).to(dev)
+    pa.reset_launches()
+    fa.reset_launches()
+    first, kv1 = _moe_prefill_and_decode(cfg, ctx, params, toks, dev)
+    second, kv2 = _moe_prefill_and_decode(cfg, ctx, params, toks, dev)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 2 * cfg.num_layers
+    assert pa.launches["paged_attention_stats"] == 2 * 4 * cfg.num_layers
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(kv1.k_pages, kv2.k_pages)
+    assert torch.equal(kv1.v_pages, kv2.v_pages)
+
+
+def test_lm_moe_engine_kernels_equal_plain_on_the_card(dev):
+    """The paged LM engine serving reduced Qwen3-MoE-30B-A3B (f32, flash
+    prefill on, capacity factor 0.5 so prefill drops) with the kernels
+    and with the plain versions on the card: equal token streams, pools
+    within 1e-5, both kernels launched."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import local_context
+
+    cfg = reduced(get_config(MOE_ARCH)).replace(
+        dtype="float32", use_pallas_flash=True, flash_block=8,
+        capacity_factor=0.5)
+    ctx = local_context()
+    params = init_params(0, cfg, ctx, dev)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        1, cfg.vocab_size, (8, 16)).astype(np.int32))
+    out = {}
+    for backend in ("auto", "ref"):
+        ecfg = eng.LMEngineConfig(num_queues=4, capacity=8, prompt_len=16,
+                                  gen_len=6, slots=4, admit_per_step=2,
+                                  paged=True, page_size=4,
+                                  kernel_backend=backend)
+        state = eng.lm_make_paged(ecfg, cfg, ctx, dev)
+        pa.reset_launches()
+        fa.reset_launches()
+        for i in range(0, 8, 4):
+            state = eng.lm_inject(state, torch.arange(4), prompts[i:i + 4])
+            for _ in range(10):
+                state = eng.lm_engine_step(state, ecfg, cfg, ctx, params)
+        torch.cuda.synchronize()
+        out[backend] = (state, pa.launches["paged_attention_stats"],
+                        fa.launches["flash_attention"])
+    (a, pl, fl), (b, pl_ref, fl_ref) = out["auto"], out["ref"]
+    assert pl > 0 and fl > 0 and pl_ref == fl_ref == 0
+    assert int(a.completed) == int(b.completed) == 8
+    assert torch.equal(a.resp.entries, b.resp.entries)
+    torch.testing.assert_close(a.decode.k_pages, b.decode.k_pages,
+                               rtol=1e-5, atol=1e-5)
+
+
 # ------------------------- fault and durability ------------------------------
 
 def _failed_over_chain(dev, rng, cfg, batches_live=3, batches_dead=6):

@@ -1,10 +1,10 @@
 """The LM serving slice of the PyTorch port against the JAX package: the
 same seeded prompts through JAX's engine and the port's (dense ring
 caches, the paged pool with the plain stats walk, and the paged pool with
-a forced host-tier eviction), on reduced f32 configs of qwen2.5-14b (GQA)
-and qwen1.5-0.5b (tied embeddings). Greedy token streams must be equal,
-page pools within 1e-5, every other state field equal, and the pool must
-drain to empty."""
+a forced host-tier eviction), on reduced f32 configs of qwen2.5-14b (GQA),
+qwen1.5-0.5b (tied embeddings) and qwen3-moe-30b-a3b (MoE). Greedy token
+streams must be equal, page pools within 1e-5, every other state field
+equal, and the pool must drain to empty."""
 from __future__ import annotations
 
 import jax
@@ -33,14 +33,14 @@ CPU = torch.device("cpu")
 POOL_TOL = 1e-5
 
 
-def _jax_setup(arch):
-    cfg = jax_reduced(jax_get_config(arch)).replace(dtype="float32")
+def _jax_setup(arch, **kw):
+    cfg = jax_reduced(jax_get_config(arch)).replace(dtype="float32", **kw)
     ctx = jax_local_context()
     return cfg, ctx, jax_init_params(jax.random.key(0), cfg, ctx)
 
 
-def _torch_setup(arch, jparams):
-    cfg = reduced(get_config(arch)).replace(dtype="float32")
+def _torch_setup(arch, jparams, **kw):
+    cfg = reduced(get_config(arch)).replace(dtype="float32", **kw)
     params = interop.lm_params_from_numpy(interop.to_numpy(jparams), CPU)
     return cfg, local_context(), params
 
@@ -134,7 +134,7 @@ def _compare_states(jstate, tstate):
     walk(a, b, "state")
 
 
-ARCHS = ["qwen2.5-14b", "qwen1.5-0.5b"]
+ARCHS = ["qwen2.5-14b", "qwen1.5-0.5b", "qwen3-moe-30b-a3b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -183,3 +183,36 @@ def test_engines_match_jax_streams_and_state(arch):
                 jcold.evictions, jcold.restores)
             assert tcold.pages_used == 0
     assert streams["paged"] == streams["dense"] == streams["paged_evict"]
+
+
+def test_moe_paged_prefill_sizes_capacity_from_the_padded_batch():
+    """MoE at capacity factor 0.5 through the paged engine, one request in
+    flight at a time, so every admission step admits one prompt of an
+    admission batch of two. The port prefills only that prompt, JAX the
+    padded batch; with the capacity sized from the padded batch's count
+    (the engine's repair) the token streams and states are JAX's. Sized
+    from the admitted prompt alone, the capacity halves and the prefill
+    differs (checked directly below)."""
+    from repro_torch.models import prefill_kv
+
+    arch, plen = "qwen3-moe-30b-a3b", 32
+    jcfg, jctx, jparams = _jax_setup(arch, capacity_factor=0.5)
+    tcfg, tctx, tparams = _torch_setup(arch, jparams, capacity_factor=0.5)
+    kw = dict(num_queues=1, prompt_len=plen, cache_len=plen + G + 2,
+              paged=True, kernel_backend="ref")
+    jcf, tcf = _ecfg(jeng, **kw), _ecfg(eng, **kw)
+    assert tcf.admit_per_step == 2
+    prompts = np.random.default_rng(4).integers(
+        1, jcfg.vocab_size, (3, plen)).astype(np.int32)
+    jstep, jstate = jax_build_engine(jcfg, jctx, jcf, jparams)
+    tstep, tstate = build_engine(tcfg, tctx, tcf, tparams, CPU)
+    jgot, jfinal, jticks = _serve(_Jax, jstep, jstate, jcf, prompts)
+    tgot, tfinal, tticks = _serve(_Torch, tstep, tstate, tcf, prompts)
+    assert tgot == jgot and tticks == jticks
+    _compare_states(jfinal, tfinal)
+
+    one = torch.as_tensor(prompts[:1])
+    _, _, padded = prefill_kv(tparams, one, tcfg, tctx,
+                              capacity_tokens=tcf.admit_per_step * plen)
+    _, _, own = prefill_kv(tparams, one, tcfg, tctx)
+    assert not torch.allclose(own, padded, rtol=POOL_TOL, atol=POOL_TOL)
