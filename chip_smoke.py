@@ -2,11 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's three request apps — the KVS, chain-replicated
-transactions (TX) and DLRM inference — and paged LM serving of
-Qwen2.5-14B and Qwen3-MoE-30B-A3B through the ORCA engine and the
-hand-written CUDA kernels, at deployment sizes, with the fault and durability layer (fault injection,
-chain failover, snapshots, the WAL and crash recovery) on the TX, KVS and
-LM paths, and holds every kernel against its plain PyTorch version.
+transactions (TX) and DLRM inference — and LM serving of Qwen2.5-14B,
+Qwen3-MoE-30B-A3B and Qwen2-VL-7B (paged), Hymba-1.5B and RWKV6-1.6B
+(dense ring engine) and MusicGen-large (prefill and decode) through the
+ORCA engine and the hand-written CUDA kernels, at deployment sizes,
+with the fault and durability layer (fault injection, chain failover,
+snapshots, the WAL and crash recovery) on the TX, KVS and LM paths, and
+holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -102,7 +104,31 @@ Phases, each printing one JSON line:
                   after the dense weights are freed: the same engine and
                   requests, the same checks, and the share of (token,
                   layer) top-8 expert sets on which the kernel and plain
-                  paths agree in the teacher-forced window (reported).
+                  paths agree in the teacher-forced window (reported);
+19. lm_vlm_serve — Qwen2-VL-7B (M-RoPE, G 7), all 28 layers in bf16, the
+                  same engine and checks, 32 requests, and a media prefill
+                  (1,024 media positions) against the plain version and
+                  against no media, whose logits it must change;
+20. lm_hybrid_serve — Hymba-1.5B (attention in a 1,024-token window beside
+                  a Mamba branch), all 32 layers in bf16, 32 requests of
+                  2,048 tokens through the dense ring engine with the
+                  flash prefill, the plain engine beside it; the
+                  teacher-forced rows of 8 prompts (every position, then
+                  16 decode steps): in bf16 every decided row
+                  argmax-equal, at least 64 decided, beside the control of
+                  two plain versions; in f32 at full width and depth the
+                  10% share; every layer's flash call against its plain
+                  version;
+21. lm_ssm_serve — RWKV6-1.6B (attention-free), all 24 layers in bf16, 32
+                  requests through the dense engine: no hand-written
+                  kernel on its path; the card against the CPU in f32 at
+                  4 layers, 8 requests: equal token streams, states within
+                  1e-5 of each layer's scale;
+22. lm_audio     — MusicGen-large (4 codebooks, G 1), all 48 layers in
+                  bf16: 8 x 512 frames through prefill with the flash
+                  kernel, then 64 decode steps; the plain version beside
+                  it; the teacher-forced rows with the 10% share; every
+                  layer's flash call against its plain version.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch raises and exits non-zero before the last line. Without a
@@ -198,6 +224,33 @@ LM_LONG = (4, 16384)
 LM_MOE_ARCH = "qwen3-moe-30b-a3b"
 LM_MOE_REQUESTS = 48  # cut from lm_serve's 96 to keep the script's time
 LM_MOE_HEADS = (32, 4)
+# the other four families, each at full width and depth in bf16 with
+# random weights from the seed (src/repro_torch/configs/): Qwen2-VL-7B (28
+# layers, d 3584, 28 q / 4 kv heads: G 7, M-RoPE, 1,024 media positions)
+# through lm_serve's paged engine, cut to 32 requests (one wave of slots);
+# Hymba-1.5B (32 layers, d 1600, 25 q / 5 kv heads of 64, a 1,024-token
+# window beside a Mamba branch of state 16) through the dense engine with
+# 2,048-token prompts, so that the window bites, its ring the window;
+# RWKV6-1.6B (24 layers, d 2048, attention-free) through the dense engine;
+# MusicGen-large (48 layers, d 2048, 32 q / 32 kv heads of 64, 4
+# codebooks) through prefill and decode_step
+LM_VLM_ARCH, LM_VLM_REQUESTS = "qwen2-vl-7b", 32
+LM_HYBRID_ARCH = "hymba-1.5b"
+LM_HYBRID_ENGINE = dict(LM_ENGINE, paged=False, prompt_len=2048,
+                        cache_len=1024)
+LM_SSM_ARCH = "rwkv6-1.6b"
+LM_SSM_ENGINE = dict(LM_ENGINE, paged=False)
+LM_DENSE_REQUESTS = 32  # hybrid and ssm
+# the ssm card-against-CPU check: layers, requests, and its engine (8
+# slots, caps up to 32: the CPU decodes every slot each step)
+LM_SSM_CPU = (4, 8)
+LM_SSM_CPU_ENGINE = dict(LM_SSM_ENGINE, slots=8, gen_len=32)
+LM_AUDIO_ARCH = "musicgen-large"
+LM_AUDIO_FRAMES = (8, 512)  # prompts x frames of 4 codebook tokens
+LM_AUDIO_STEPS = 64  # decode steps after the prefill
+LM_TF_PROMPTS = 8  # prompts of the prefill teacher-forced checks
+LM_PREFILL_TF_STEPS = 16  # their decode steps after the prefill
+LM_FAMILY_PROFILE_STEPS = 4  # the profiled steps of hybrid, ssm and audio
 LM_SNAPSHOT_STEP = 24  # the engine step the teacher-forced check starts at
 LM_TF_STEPS = 40  # teacher-forced decode steps (at least 32)
 # the profiled window: a copy of the engine state after this step runs the
@@ -2013,21 +2066,31 @@ def paged_split_sweep(torch, pa, args, counts=(1, 2, 4, 8)):
     return res
 
 
-def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
+def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
     """Both LM kernels against their plain versions at the serve shapes:
     the paged stats walk on a bf16 and an f32 pool (and its split count),
     plus 4 sequences of 16,384 tokens on a bf16 pool, flash prefill
     attention (8 prompts of 512 tokens, 40 q / 8 kv heads) in bf16 and
-    f32, and windowed (128); and both in bf16 at the MoE model's heads
-    (32 q / 4 kv). Returns the bf16 entries of the dense main path."""
+    f32, and windowed (128); both in bf16 at the MoE model's heads (32 q /
+    4 kv) and at the vlm model's (28 q / 4 kv: G 7); flash at the hybrid
+    model's (25 q / 5 kv, hd 64, 2,048-token prompts, its window of
+    1,024) in bf16 and f32, and at the audio model's (32 q / 32 kv, hd
+    64). Returns the bf16 entries of the dense main path, each other
+    shape under ``<family>_shape``."""
     out, entries = {"phase": "lm_kernels", "nvidia_smi": smi}, {}
     h_moe, kvh_moe = LM_MOE_HEADS
+    fam = {name: cfg_mod.get_config(arch) for name, arch in (
+        ("vlm", LM_VLM_ARCH), ("hybrid", LM_HYBRID_ARCH),
+        ("audio", LM_AUDIO_ARCH))}
+    vlm = fam["vlm"]
     for key, dt, seqs, tokens, heads in (
             ("bfloat16", torch.bfloat16, None, None, (8, 5)),
             ("float32", torch.float32, None, None, (8, 5)),
             ("long_bfloat16", torch.bfloat16, *LM_LONG, (8, 5)),
             ("moe_bfloat16", torch.bfloat16, None, None,
-             (kvh_moe, h_moe // kvh_moe))):
+             (kvh_moe, h_moe // kvh_moe)),
+            ("vlm_bfloat16", torch.bfloat16, None, None,
+             (vlm.num_kv_heads, vlm.num_heads // vlm.num_kv_heads))):
         args = lm_pool_inputs(torch, np, dt, SEED + 20, seqs, tokens, *heads)
         q, kp, vp, table, lengths = args
         b, kvh, g, hd = q.shape
@@ -2053,15 +2116,26 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
             entries["paged_attention_stats"] = e
         del args, q, kp, vp
         torch.cuda.empty_cache()
-    b, s, hd = 8, LM_ENGINE["prompt_len"], 128
+    s = LM_ENGINE["prompt_len"]
+    cases = [("bfloat16", torch.bfloat16, 40, 8, s, 128, (0, 128)),
+             ("float32", torch.float32, 40, 8, s, 128, (0, 128)),
+             ("moe_bfloat16", torch.bfloat16, h_moe, kvh_moe, s, 128, (0,))]
+    for name, dts, seq in (
+            ("vlm", (torch.bfloat16,), s),
+            ("hybrid", (torch.bfloat16, torch.float32),
+             LM_HYBRID_ENGINE["prompt_len"]),
+            ("audio", (torch.bfloat16,), LM_AUDIO_FRAMES[1])):
+        c = fam[name]
+        cases += [(f"{name}_{str(dt).rsplit('.', 1)[-1]}", dt, c.num_heads,
+                   c.num_kv_heads, seq, c.resolved_head_dim,
+                   (c.sliding_window,)) for dt in dts]
+    b = 8
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
-    for key, dt, h, kvh in (("bfloat16", torch.bfloat16, 40, 8),
-                            ("float32", torch.float32, 40, 8),
-                            ("moe_bfloat16", torch.bfloat16, h_moe, kvh_moe)):
+    for key, dt, h, kvh, s, hd, windows in cases:
         q = torch.randn((b, h, s, hd), generator=gen, device="cuda").to(dt)
         k = torch.randn((b, kvh, s, hd), generator=gen, device="cuda").to(dt)
         v = torch.randn((b, kvh, s, hd), generator=gen, device="cuda").to(dt)
-        for window in ((0,) if key.startswith("moe") else (0, 128)):
+        for window in windows:
             pos = torch.arange(s, device="cuda")
             keys = torch.minimum(pos + 1, torch.full_like(pos, window)) \
                 if window else pos + 1
@@ -2077,16 +2151,19 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
                 return F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True)
 
-            tol = FLASH_F32_TOL if key == "float32" else LM_TOL["bfloat16"]
+            dtype_name = str(dt).rsplit(".", 1)[-1]
+            tol = FLASH_F32_TOL if dt == torch.float32 \
+                else LM_TOL["bfloat16"]
             e = float_entry(
                 torch, "flash_attention",
                 (fa.flash_attention(q, k, v, window=window),),
                 (ref.flash_attention(q, k, v, window=window),),
                 lambda: fa.flash_attention(q, k, v, window=window),
                 lambda: ref.flash_attention(q, k, v, window=window), tol,
-                nbytes, flops, str(dt).rsplit(".", 1)[-1], lib)
+                nbytes, flops, dtype_name, lib)
             e["window"] = window
             e["heads"] = (h, kvh)
+            e["shape"] = {"b": b, "s": s, "hd": hd}
             out[f"flash_{key}_window{window}"] = e
             if key == "bfloat16" and not window:
                 entries["flash_attention"] = e
@@ -2098,26 +2175,38 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, smi):
     if bad:
         raise AssertionError(f"lm_kernels: kernels outside tolerance: {bad}")
     entries["paged_attention_stats"]["moe_shape"] = out["paged_moe_bfloat16"]
+    entries["paged_attention_stats"]["vlm_shape"] = out["paged_vlm_bfloat16"]
     entries["flash_attention"]["moe_shape"] = out[
         "flash_moe_bfloat16_window0"]
+    for name, key in (("vlm_shape", "vlm_bfloat16"),
+                      ("hybrid_shape", "hybrid_bfloat16"),
+                      ("hybrid_f32_shape", "hybrid_float32"),
+                      ("audio_shape", "audio_bfloat16")):
+        window = fam[key.split("_")[0]].sliding_window
+        entries["flash_attention"][name] = out[f"flash_{key}_window{window}"]
     return entries
 
 
-def lm_requests(np, cfg, n, seed):
+def lm_requests(np, cfg, n, seed, prompt_len=None, gen_len=None):
     """``n`` prompts of random tokens and per-request generation caps in
-    [1, gen_len]."""
+    [1, gen_len] (LM_ENGINE's lengths unless given)."""
     rng = np.random.default_rng(seed)
-    prompts = rng.integers(1, cfg.vocab_size, (n, LM_ENGINE["prompt_len"]))
-    caps = rng.integers(1, LM_ENGINE["gen_len"] + 1, n)
+    prompts = rng.integers(1, cfg.vocab_size,
+                           (n, prompt_len or LM_ENGINE["prompt_len"]))
+    caps = rng.integers(1, (gen_len or LM_ENGINE["gen_len"]) + 1, n)
     return prompts.astype(np.int32), caps.astype(np.int32)
 
 
 def lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts, caps,
-                 on_step=None):
-    """Inject every request (a wave of one per queue at a time), then run
-    engine steps until all have completed. ``on_step(step, state)`` may
-    return a replacement state. Returns (state, host seconds per step)."""
-    state = eng.lm_make_paged(ecfg, cfg, ctx, "cuda")
+                 on_step=None, device="cuda"):
+    """Inject every request (a wave of one per queue at a time) into the
+    engine the launcher builds (``launch.serve.build_engine``: paged or
+    dense per ``ecfg``), then run engine steps until all have completed.
+    ``on_step(step, state)`` may return a replacement state. Returns
+    (state, host seconds per step)."""
+    from repro_torch.launch.serve import build_engine
+
+    step_fn, state = build_engine(cfg, ctx, ecfg, params, device)
     q = ecfg.num_queues
     qids = torch.arange(q, dtype=torch.int32)
     for lo in range(0, len(prompts), q):
@@ -2127,7 +2216,7 @@ def lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts, caps,
     for step in range(len(prompts) * ecfg.gen_len):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state = eng.lm_engine_step(state, ecfg, cfg, ctx, params)
+        state = step_fn(state)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         if on_step is not None:
@@ -2317,30 +2406,35 @@ def lm_teacher_forced(torch, model, pk, params, cfg, ctx, pcfg, snap,
 
 
 def clone_tree(torch, x):
-    """A deep copy of a state of nested NamedTuples of tensors."""
+    """A deep copy of a state of nested NamedTuples and dicts of
+    tensors."""
     if isinstance(x, torch.Tensor):
         return x.clone()
     if isinstance(x, tuple):
         return type(x)(*(clone_tree(torch, y) for y in x))
+    if isinstance(x, dict):
+        return {k: clone_tree(torch, y) for k, y in x.items()}
     return x
 
 
-def lm_profile(torch, eng, pa, fa, ecfg, cfg, ctx, params, state):
-    """LM_PROFILE_STEPS engine steps from ``state`` (a copy: the serve
-    run goes on from its own) under torch.profiler: device µs and device
-    launches per step and the costliest kernels. The launch counts are
-    left as they were: these steps are not the main path's."""
+def lm_profile(torch, pa, fa, step_fn, state, steps=None):
+    """``steps`` (LM_PROFILE_STEPS) engine steps (``step_fn``) from
+    ``state`` (a copy: the serve run goes on from its own) under
+    torch.profiler: device µs and device launches per step and the
+    costliest kernels. The launch counts are left as they were: these
+    steps are not the main path's."""
     counts = ({**pa.launches}, {**fa.launches})
     box = [state]
+    steps = steps or LM_PROFILE_STEPS
 
     def run():
-        box[0] = eng.lm_engine_step(box[0], ecfg, cfg, ctx, params)
+        box[0] = step_fn(box[0])
 
-    total, per = device_us(torch, run, reps=LM_PROFILE_STEPS)
+    total, per = device_us(torch, run, reps=steps)
     pa.launches.update(counts[0])
     fa.launches.update(counts[1])
     top = sorted(per.items(), key=lambda kv_: -kv_[1][0])[:8]
-    return {"first_step": LM_PROFILE_STEP + 1, "steps": LM_PROFILE_STEPS,
+    return {"first_step": LM_PROFILE_STEP + 1, "steps": steps,
             "device_us_per_step": total,
             "device_launches_per_step": sum(n for _, n in per.values()),
             "top_kernels_us_per_step": {k[:90]: us for k, (us, _) in top}}
@@ -2370,14 +2464,16 @@ def lm_walk_check(torch, pa, ref, kv, seed, g):
 
 def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
                    smi, phase="lm_serve", arch=LM_ARCH, requests=LM_REQUESTS,
-                   seed=SEED + 30, moe=None):
-    """All 48 layers of ``arch`` in bf16 with the flash prefill,
+                   seed=SEED + 30, moe=None, extra=None):
+    """All layers of ``arch`` in bf16 with the flash prefill,
     ``requests`` requests through the kernel engine (the main path: its
     launch counts), then the plain engine for free-running agreement
     (reported, not asserted), the teacher-forced check from a snapshot of
     the kernel run's pool (with ``moe``, the MoE module, also the share of
     expert sets the two paths agree on), and the per-layer walk check.
-    Frees the weights and returns the kernel run's launch counts."""
+    ``extra(cfg, params)`` adds a check of its own: it returns (key,
+    result, failure message or None). Frees the weights and returns the
+    kernel run's launch counts."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     start_gb = torch.cuda.memory_allocated() / 1e9
@@ -2395,8 +2491,10 @@ def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
             active = state.slot_active & (state.slot_done < state.slot_cap)
             snap["v"] = (pk.clone(kv), state.slot_last.clone(), active)
         if step == LM_PROFILE_STEP:
-            prof.update(lm_profile(torch, eng, pa, fa, ecfg, cfg, ctx, params,
-                                   clone_tree(torch, state)))
+            prof.update(lm_profile(
+                torch, pa, fa,
+                lambda s: eng.lm_engine_step(s, ecfg, cfg, ctx, params),
+                clone_tree(torch, state)))
         return None
 
     pa.reset_launches()
@@ -2471,7 +2569,12 @@ def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
                      "step_s_sum": sum(t_p),
                      "tokens_per_s": total_tokens / sum(t_p)},
            "profile": prof}
+    failed = None
+    if extra is not None:
+        key, out[key], failed = extra(cfg, params)
     emit(out)
+    if failed:
+        raise AssertionError(f"{phase}: {failed}")
     need = max(LM_DECIDED_SHARE * tf["rows"], LM_DECIDED_MIN)
     if tf["rows_decided"] < need:
         raise AssertionError(f"{phase}: {tf['rows_decided']} of "
@@ -2482,6 +2585,532 @@ def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
     if not all(launches.values()):
         raise AssertionError(f"{phase}: kernels not launched: {launches}")
     del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# LM serving: the vlm, hybrid, ssm and audio families
+# ---------------------------------------------------------------------------
+
+def row_stats(torch, a, b, v):
+    """Teacher-forced rows, kernel logits ``a`` against plain ``b`` (rows
+    x at least ``v``), over the first ``v`` columns: a row is decided when
+    b's top-2 margin exceeds twice the row's largest |a - b|."""
+    a, b = a[:, :v].float(), b[:, :v].float()
+    d = (a - b).abs().amax(dim=-1)
+    top2 = b.topk(2, dim=-1).values
+    dec = (top2[:, 0] - top2[:, 1]) > 2 * d
+    eq = a.argmax(dim=-1) == b.argmax(dim=-1)
+    return {"rows": int(a.shape[0]), "rows_decided": int(dec.sum()),
+            "argmax_equal_where_decided": int((eq & dec).sum()),
+            "argmax_equal_all": int(eq.sum()),
+            "max_logit_diff": float(d.max()),
+            "max_logit_diff_over_std": float((d / b.std(dim=-1)).max())}
+
+
+def merge_rows(parts):
+    """row_stats parts summed (the largest differences kept), with the
+    decided share."""
+    out = {k: sum(p[k] for p in parts) for k in (
+        "rows", "rows_decided", "argmax_equal_where_decided",
+        "argmax_equal_all")}
+    for k in ("max_logit_diff", "max_logit_diff_over_std"):
+        out[k] = max(p[k] for p in parts)
+    out["decided_share"] = out["rows_decided"] / max(out["rows"], 1)
+    return out
+
+
+def decided_failure(tf, share):
+    """Why the teacher-forced rows ``tf`` fail: fewer decided than
+    ``share`` of the rows (None: only LM_DECIDED_MIN) and LM_DECIDED_MIN,
+    or an argmax that differs on a decided row; None when they pass."""
+    need = max((share or 0) * tf["rows"], LM_DECIDED_MIN)
+    if tf["rows_decided"] < need:
+        return (f"{tf['rows_decided']} of {tf['rows']} teacher-forced rows "
+                f"decided, fewer than {need}")
+    if tf["argmax_equal_where_decided"] != tf["rows_decided"]:
+        return "argmax differs on a decided row"
+    return None
+
+
+def flash_walk(torch, ops, ref, tol, fn):
+    """``fn()`` with every ``ops.flash_attention`` call (one a layer of a
+    prefill) also held against the plain version on the same inputs.
+    Returns (fn's result, the walk: layers, elements outside ``tol``, the
+    largest |difference|)."""
+    orig = ops.flash_attention
+    walk = {"layers_checked": 0, "outside_tolerance": 0,
+            "max_abs_diff": 0.0, "tolerance": tol}
+
+    def checked(q, k, v, *, window=0, backend="auto"):
+        out = orig(q, k, v, window=window, backend=backend)
+        a, b = out.float(), ref.flash_attention(q, k, v, window=window).float()
+        walk["layers_checked"] += 1
+        walk["outside_tolerance"] += int(
+            (~torch.isclose(a, b, rtol=tol, atol=tol)).sum())
+        walk["max_abs_diff"] = max(walk["max_abs_diff"],
+                                   float((a - b).abs().max()))
+        return out
+
+    ops.flash_attention = checked
+    try:
+        return fn(), walk
+    finally:
+        ops.flash_attention = orig
+
+
+def lm_prefill_rows(torch, model, params, toks, ctx, cache_len, arm_a, arm_b,
+                    walk=None):
+    """The teacher-forced rows of a prefill: ``toks`` through
+    ``model.prefill`` on arm a and on arm b (each (cfg, backend)), the
+    logits of every position held row by row, then LM_PREFILL_TF_STEPS
+    dense decode steps from the two prefilled states, both fed arm a's greedy tokens.
+    ``walk(fn)`` wraps arm a's prefill (flash_walk). Returns (the rows,
+    with their "prefill" and "decode" parts; the walk or None)."""
+    outs, walked = [], None
+    for i, (cfg, backend) in enumerate((arm_a, arm_b)):
+        st = model.make_decode_state(cfg, ctx, toks.shape[0], cache_len,
+                                     "cuda")
+
+        def run(cfg=cfg, backend=backend, st=st):
+            return model.prefill(params, toks, st, cfg, ctx, backend=backend,
+                                 all_logits=True)
+
+        if i == 0 and walk is not None:
+            res, walked = walk(run)
+        else:
+            res = run()
+        outs.append(res)
+        del st, run
+    (sa, la), (sb, lb) = outs
+    del outs
+    v, vp = arm_a[0].vocab_size, la.shape[-1]
+    pre = row_stats(torch, la.reshape(-1, vp), lb.reshape(-1, vp), v)
+    nxt = la[:, -1].argmax(-1).to(torch.int32)
+    del la, lb
+    dec, steps = [], LM_PREFILL_TF_STEPS
+    for _ in range(steps):
+        sa, la = model.decode_step(params, nxt, sa, arm_a[0], ctx)
+        sb, lb = model.decode_step(params, nxt, sb, arm_b[0], ctx)
+        dec.append(row_stats(torch, la.reshape(-1, vp), lb.reshape(-1, vp),
+                             v))
+        nxt = la.argmax(-1).to(torch.int32)
+    out = merge_rows([pre] + dec)
+    out.update(prompts=list(toks.shape[:2]), prefill=merge_rows([pre]),
+               decode_steps=steps)
+    if dec:
+        out["decode"] = merge_rows(dec)
+    del sa, sb
+    torch.cuda.empty_cache()
+    return out, walked
+
+
+def lm_media_check(torch, model, fa, params, cfg, ctx, seed):
+    """A vlm prefill of LM_TF_PROMPTS prompts of media_tokens + prompt_len
+    tokens with media embeddings (random, at the token embeddings' scale)
+    at the first media_tokens positions: the kernel prefill against the
+    plain one (argmax equal where decided), and against the kernel
+    prefill without media, whose logits must differ. For phase_lm_serve's
+    ``extra``."""
+    b, m = LM_TF_PROMPTS, cfg.media_tokens
+    s = m + LM_ENGINE["prompt_len"]
+    v = cfg.vocab_size
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(1, v, (b, s), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    tok = params["embed"]["tok"]
+    scale = float(tok[:4096].float().std())
+    media = (torch.randn((b, m, cfg.d_model), generator=gen, device="cuda")
+             * scale).to(tok.dtype)
+    logits, secs, flash = {}, {}, {}
+    for name, backend, med in (("kernel", "cuda", media),
+                               ("plain", "ref", media),
+                               ("kernel_no_media", "cuda", None)):
+        st = model.make_decode_state(cfg, ctx, b, s, "cuda")
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, logits[name] = model.prefill(params, toks, st, cfg, ctx,
+                                        media=med, backend=backend)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        flash[name] = fa.launches["flash_attention"]
+        del st
+    rows = merge_rows([row_stats(torch, logits["kernel"], logits["plain"],
+                                 v)])
+    with_m, without = logits["kernel"][:, :v], logits["kernel_no_media"][:, :v]
+    change = float((with_m - without).abs().max())
+    out = {"prompts": [b, s], "media_tokens": m, "media_scale": scale,
+           "kernel_vs_plain": rows, "media_max_logit_change": change,
+           "media_argmax_changed": int((with_m.argmax(-1)
+                                        != without.argmax(-1)).sum()),
+           "seconds": secs, "flash_launches": flash}
+    failed = None
+    if rows["argmax_equal_where_decided"] != rows["rows_decided"]:
+        failed = "media prefill: argmax differs on a decided row"
+    elif not change > 1e-3:
+        failed = f"media prefill: the media moved the logits by {change}"
+    elif flash != {"kernel": cfg.num_layers, "plain": 0,
+                   "kernel_no_media": cfg.num_layers}:
+        failed = f"media prefill: flash launches {flash}"
+    torch.cuda.empty_cache()
+    return "media_prefill", out, failed
+
+
+def lm_dense_run(torch, eng, serve, pa, fa, cfg, ctx, params, ecfg, prompts,
+                 caps, profile=True):
+    """The requests through the dense engine (``launch.serve``), the
+    launch counts set to 0 just before. Returns (state, step seconds,
+    admission flags, launches, and with ``profile``
+    LM_FAMILY_PROFILE_STEPS steps from a copy of the state after step
+    LM_PROFILE_STEP under the profiler)."""
+    step_fn = serve.engine_step(cfg, ctx, ecfg, params, "cuda")
+    adm, prof = [], {}
+
+    def on_step(step, state):
+        # a request seated this step has emitted only its prefill token
+        adm.append(bool((state.slot_active & (state.slot_done == 1)).any()))
+        if profile and step == LM_PROFILE_STEP:
+            prof.update(lm_profile(torch, pa, fa, step_fn,
+                                   clone_tree(torch, state),
+                                   LM_FAMILY_PROFILE_STEPS))
+
+    pa.reset_launches()
+    fa.reset_launches()
+    state, times = lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts,
+                                caps, on_step)
+    launches = {**pa.launches, **fa.launches}
+    if profile:
+        win = slice(LM_PROFILE_STEP + 1, LM_PROFILE_STEP + 1
+                    + LM_FAMILY_PROFILE_STEPS)
+        prof["wall_us_per_step"] = statistics.mean(times[win]) * 1e6
+        prof["idle_share"] = (1 - prof["device_us_per_step"]
+                              / prof["wall_us_per_step"])
+        prof["admission_steps"] = sum(adm[win])
+    return state, times, adm, launches, prof
+
+
+def step_summary_lm(times, adm, tokens):
+    """Step medians (all, decode, admission) and tokens over the summed
+    step times."""
+    dec = [t for t, a in zip(times, adm) if not a]
+    ad = [t for t, a in zip(times, adm) if a]
+    return {"step_us_median": statistics.median(times) * 1e6,
+            "decode_step_us_median": statistics.median(dec) * 1e6,
+            "admission_step_us_median":
+            statistics.median(ad) * 1e6 if ad else None,
+            "steps": len(times), "admission_steps": len(ad),
+            "step_s_sum": sum(times), "tokens_per_s": tokens / sum(times)}
+
+
+def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
+                          fa, ref, ctx, smi):
+    """Hymba-1.5B, all 32 layers in bf16: LM_DENSE_REQUESTS requests of
+    2,048 tokens through the dense engine with the flash prefill (the main
+    path: its launch counts), then the plain engine (free-running
+    agreement, reported). Teacher-forced rows of LM_TF_PROMPTS prompts
+    (every prompt position, then LM_PREFILL_TF_STEPS decode steps), the
+    kernel prefill against the plain one: in bf16 every decided row
+    argmax-equal and at least LM_DECIDED_MIN decided, beside the control
+    of two plain versions (chunked attention against the plain flash); in
+    f32 at full width and depth the standard LM_DECIDED_SHARE. Each
+    prefill's layers walked through flash against its plain version.
+    Returns (the main path's launches, the f32 check's flash launches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    seed = SEED + 50
+    cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx,
+                                           LM_HYBRID_ARCH, seed)
+    ecfg = eng.LMEngineConfig(**LM_HYBRID_ENGINE, kernel_backend="auto")
+    prompts, caps = lm_requests(np, cfg, LM_DENSE_REQUESTS, seed + 2,
+                                ecfg.prompt_len)
+    secs = {}
+    t0 = time.perf_counter()
+    state, t_k, adm, launches, prof = lm_dense_run(
+        torch, eng, serve, pa, fa, cfg, ctx, params, ecfg, prompts, caps)
+    secs["kernel_run"] = time.perf_counter() - t0
+    resp_k = lm_responses(np, rb, state, caps, ecfg.num_queues)
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state, t_p, adm_p, plain, _ = lm_dense_run(
+        torch, eng, serve, pa, fa, cfg, ctx, params,
+        ecfg._replace(kernel_backend="ref"), prompts, caps, profile=False)
+    secs["plain_run"] = time.perf_counter() - t0
+    resp_p = lm_responses(np, rb, state, caps, ecfg.num_queues)
+    del state
+    torch.cuda.empty_cache()
+    total = sum(len(r) for r in resp_k.values())
+    same = sum(int((resp_k[k] == resp_p[k]).sum()) for k in resp_k)
+
+    t0 = time.perf_counter()
+    toks = torch.from_numpy(prompts[:LM_TF_PROMPTS]).cuda()
+    tf_bf, walk_bf = lm_prefill_rows(
+        torch, model, params, toks, ctx, ecfg.cache_len, (cfg, "cuda"),
+        (cfg, "ref"), walk=lambda fn: flash_walk(
+            torch, ops, ref, LM_TOL["bfloat16"], fn))
+    control, _ = lm_prefill_rows(
+        torch, model, params, toks, ctx, ecfg.cache_len,
+        (cfg.replace(use_pallas_flash=False), "ref"), (cfg, "ref"))
+    secs["teacher_forced_bf16"] = time.perf_counter() - t0
+    peak_bf = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cfg32, p32, _, pbytes32 = lm_setup(torch, cfg_mod, model, ctx,
+                                       LM_HYBRID_ARCH, seed, dtype="float32")
+    fa.reset_launches()
+    tf_32, walk_32 = lm_prefill_rows(
+        torch, model, p32, toks, ctx, ecfg.cache_len, (cfg32, "cuda"),
+        (cfg32, "ref"), walk=lambda fn: flash_walk(
+            torch, ops, ref, FLASH_F32_TOL, fn))
+    f32_launches = fa.launches["flash_attention"]
+    secs["teacher_forced_f32"] = time.perf_counter() - t0
+    del p32, toks
+    torch.cuda.empty_cache()
+
+    out = {"phase": "lm_hybrid_serve", "nvidia_smi": smi,
+           "arch": LM_HYBRID_ARCH, "family": cfg.family,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": (cfg.num_heads, cfg.num_kv_heads),
+           "window": cfg.sliding_window,
+           "ssm": {"state": cfg.ssm_state, "expand": cfg.ssm_expand},
+           "dtype": cfg.dtype, "use_pallas_flash": cfg.use_pallas_flash,
+           "allocated_gb_at_start": start_gb, "params_gb": pbytes / 1e9,
+           "params_f32_gb": pbytes32 / 1e9, "init_s": init_s,
+           "peak_gb": peak_bf / 1e9,
+           "peak_gb_with_f32": torch.cuda.max_memory_allocated() / 1e9,
+           "engine": LM_HYBRID_ENGINE, "requests": LM_DENSE_REQUESTS,
+           "generated_tokens": total,
+           "token_agreement_auto_vs_ref": same / max(total, 1),
+           "launches": launches,
+           "launches_per_step": {k: n / len(t_k)
+                                 for k, n in launches.items()},
+           "kernels": step_summary_lm(t_k, adm, total),
+           "plain": step_summary_lm(t_p, adm_p, total),
+           "profile": prof,
+           "teacher_forced": {
+               "bfloat16": {**tf_bf, "flash_layers": walk_bf,
+                            "required": {"rows": LM_DECIDED_MIN,
+                                         "share": None},
+                            "control_chunked_vs_plain_flash": control},
+               "float32": {**tf_32, "flash_layers": walk_32,
+                           "flash_launches": f32_launches,
+                           "required": {"rows": LM_DECIDED_MIN,
+                                        "share": LM_DECIDED_SHARE}}},
+           "seconds": secs}
+    emit(out)
+    failed = [f"{k}: {m}" for k, m in (
+        ("bf16", decided_failure(tf_bf, None)),
+        ("f32", decided_failure(tf_32, LM_DECIDED_SHARE))) if m]
+    failed += [f"flash walk {k}: {w['outside_tolerance']} elements outside"
+               for k, w in (("bf16", walk_bf), ("f32", walk_32))
+               if w["outside_tolerance"] or
+               w["layers_checked"] != cfg.num_layers]
+    if not launches["flash_attention"] or any(plain.values()):
+        failed.append(f"launches {launches}, plain engine {plain}")
+    if failed:
+        raise AssertionError(f"lm_hybrid_serve: {failed}")
+    return launches, f32_launches
+
+
+def phase_lm_ssm_serve(torch, np, eng, serve, rb, cfg_mod, model, pa, fa,
+                       ctx, smi):
+    """RWKV6-1.6B, all 24 layers in bf16, LM_DENSE_REQUESTS requests
+    through the dense engine. No hand-written kernel lies on this path
+    (the JAX package's ssm mixers have no Pallas kernel): the phase
+    reports the engine and checks the card against the CPU in f32 at
+    LM_SSM_CPU's layers and requests: equal token streams, each layer's
+    state within 1e-5 of its largest |s|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    seed = SEED + 60
+    cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx,
+                                           LM_SSM_ARCH, seed)
+    ecfg = eng.LMEngineConfig(**LM_SSM_ENGINE, kernel_backend="auto")
+    prompts, caps = lm_requests(np, cfg, LM_DENSE_REQUESTS, seed + 2)
+    secs = {}
+    t0 = time.perf_counter()
+    state, t_k, adm, launches, prof = lm_dense_run(
+        torch, eng, serve, pa, fa, cfg, ctx, params, ecfg, prompts, caps)
+    secs["run"] = time.perf_counter() - t0
+    total = sum(len(r) for r in lm_responses(
+        np, rb, state, caps, ecfg.num_queues).values())
+    peak = torch.cuda.max_memory_allocated()
+    del state, params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    layers, n = LM_SSM_CPU
+    cfg32 = cfg_mod.get_config(LM_SSM_ARCH).replace(num_layers=layers,
+                                                   dtype="float32")
+    p_card = model.init_params(seed + 5, cfg32, ctx, "cuda")
+    p_cpu = tree_to(p_card, "cpu")
+    ecfg32 = eng.LMEngineConfig(**LM_SSM_CPU_ENGINE)
+    pr, cp = lm_requests(np, cfg32, n, seed + 6, gen_len=ecfg32.gen_len)
+    runs = {}
+    for dev, p in (("cuda", p_card), ("cpu", p_cpu)):
+        t1 = time.perf_counter()
+        st, _ = lm_serve_run(torch, eng, cfg32, ctx, p, ecfg32, pr, cp,
+                             device=dev)
+        runs[dev] = (st, time.perf_counter() - t1)
+    (a, ta), (b, tb) = runs["cuda"], runs["cpu"]
+    ra = lm_responses(np, rb, a, cp, ecfg32.num_queues)
+    rp = lm_responses(np, rb, b, cp, ecfg32.num_queues)
+    streams_equal = ra.keys() == rp.keys() and all(
+        np.array_equal(ra[k], rp[k]) for k in ra)
+    sa, sb = a.decode.layers, b.decode.layers
+    states = [{"max_abs_diff": float((sa["s"][i].cpu() - sb["s"][i]).abs()
+                                     .max()),
+               "max_abs": float(sb["s"][i].abs().max())}
+              for i in range(layers)]
+    states_ok = all(r["max_abs_diff"] <= POOL_REL_TOL * r["max_abs"]
+                    for r in states)
+    shifts = {k: float((sa[k].cpu() - sb[k]).abs().max())
+              for k in ("tshift", "cshift")}
+    secs["card_vs_cpu"] = time.perf_counter() - t0
+    out = {"phase": "lm_ssm_serve", "nvidia_smi": smi, "arch": LM_SSM_ARCH,
+           "family": cfg.family, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "allocated_gb_at_start": start_gb, "params_gb": pbytes / 1e9,
+           "init_s": init_s, "peak_gb": peak / 1e9, "engine": LM_SSM_ENGINE,
+           "requests": LM_DENSE_REQUESTS, "generated_tokens": total,
+           "kernels_on_path": [], "launches": launches,
+           "kernels": step_summary_lm(t_k, adm, total), "profile": prof,
+           "card_vs_cpu": {
+               "layers": layers, "dtype": "float32", "requests": n,
+               "engine": LM_SSM_CPU_ENGINE,
+               "generated_tokens": int(sum(len(r) for r in ra.values())),
+               "cpu_threads": torch.get_num_threads(),
+               "seconds": {"cuda": ta, "cpu": tb},
+               "streams_equal": streams_equal,
+               "states_within_tolerance": states_ok,
+               "state_tolerance": "max|diff| <= 1e-5 x max|s| per layer",
+               "s": states, "shift_max_abs_diff": shifts},
+           "seconds": secs}
+    emit(out)
+    if not (streams_equal and states_ok) or any(launches.values()):
+        raise AssertionError(f"lm_ssm_serve: card against CPU: streams "
+                             f"{streams_equal}, states {states_ok}; "
+                             f"launches {launches}")
+    del p_card, p_cpu, a, b, runs
+    torch.cuda.empty_cache()
+
+
+def tree_to(tree, device):
+    """A nested dict of tensors copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_lm_audio(torch, np, cfg_mod, model, ops, pa, fa, ref, ctx, smi):
+    """MusicGen-large, all 48 layers in bf16: LM_AUDIO_FRAMES of 4
+    codebook tokens through ``model.prefill`` with the flash kernel, then
+    LM_AUDIO_STEPS greedy ``decode_step``s (the main path: its launch
+    counts); the same with the plain version; the teacher-forced rows of
+    the prefill (every position and codebook, then LM_PREFILL_TF_STEPS
+    decode steps) with the standard share, its layers walked through
+    flash against its plain version. Returns the main path's launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    seed = SEED + 70
+    cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx,
+                                           LM_AUDIO_ARCH, seed)
+    b, s = LM_AUDIO_FRAMES
+    k = cfg.num_codebooks
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    toks = torch.randint(0, cfg.vocab_size, (b, s, k), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    cache_len = s + LM_AUDIO_STEPS
+
+    def run(backend, keep=None):
+        st = model.make_decode_state(cfg, ctx, b, cache_len, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, logits = model.prefill(params, toks, st, cfg, ctx,
+                                   backend=backend)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        if keep is not None:
+            keep.append(clone_tree(torch, st))
+        frames, times = [], []
+        nxt = logits.argmax(-1).to(torch.int32)
+        for _ in range(LM_AUDIO_STEPS):
+            frames.append(nxt)
+            t0 = time.perf_counter()
+            st, logits = model.decode_step(params, nxt, st, cfg, ctx)
+            nxt = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return t_pre, times, torch.stack(frames, 1)
+
+    kept = []
+    pa.reset_launches()
+    fa.reset_launches()
+    pre_k, t_k, frames_k = run("cuda", kept)
+    launches = {**pa.launches, **fa.launches}
+    pa.reset_launches()
+    fa.reset_launches()
+    pre_p, t_p, frames_p = run("ref")
+    plain = {**pa.launches, **fa.launches}
+    box = [kept.pop()]
+
+    def step():
+        box[0], logits = model.decode_step(params, frames_k[:, 0], box[0],
+                                           cfg, ctx)
+
+    dev_us, per = device_us(torch, step, reps=LM_FAMILY_PROFILE_STEPS)
+    del box
+    wall = statistics.mean(t_k) * 1e6
+    prof = {"steps": LM_FAMILY_PROFILE_STEPS, "device_us_per_step": dev_us,
+            "device_launches_per_step": sum(n for _, n in per.values()),
+            "wall_us_per_step": wall, "idle_share": 1 - dev_us / wall}
+    t0 = time.perf_counter()
+    tf, walk = lm_prefill_rows(
+        torch, model, params, toks, ctx, cache_len, (cfg, "cuda"),
+        (cfg, "ref"), walk=lambda fn: flash_walk(
+            torch, ops, ref, LM_TOL["bfloat16"], fn))
+    tf_s = time.perf_counter() - t0
+    frames = b * LM_AUDIO_STEPS
+    out = {"phase": "lm_audio", "nvidia_smi": smi, "arch": LM_AUDIO_ARCH,
+           "family": cfg.family, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": (cfg.num_heads, cfg.num_kv_heads),
+           "codebooks": k, "dtype": cfg.dtype,
+           "allocated_gb_at_start": start_gb, "params_gb": pbytes / 1e9,
+           "init_s": init_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "prefill": {"frames": [b, s], "kernel_s": pre_k, "plain_s": pre_p},
+           "decode_steps": LM_AUDIO_STEPS, "launches": launches,
+           "kernels": {"decode_step_us_median":
+                       statistics.median(t_k) * 1e6,
+                       "step_s_sum": sum(t_k),
+                       "frames_per_s": frames / sum(t_k),
+                       "tokens_per_s": frames * k / sum(t_k)},
+           "plain": {"decode_step_us_median": statistics.median(t_p) * 1e6,
+                     "step_s_sum": sum(t_p),
+                     "frames_per_s": frames / sum(t_p)},
+           "frame_agreement_auto_vs_ref": float(
+               (frames_k == frames_p).float().mean()),
+           "profile": prof,
+           "teacher_forced": {**tf, "flash_layers": walk,
+                              "required": {"rows": LM_DECIDED_MIN,
+                                           "share": LM_DECIDED_SHARE}},
+           "seconds": {"teacher_forced": tf_s}}
+    emit(out)
+    failed = decided_failure(tf, LM_DECIDED_SHARE)
+    if walk["outside_tolerance"] or walk["layers_checked"] != cfg.num_layers:
+        failed = f"flash walk {walk}"
+    if launches["flash_attention"] != cfg.num_layers or any(plain.values()):
+        failed = f"launches {launches}, plain {plain}"
+    if failed:
+        raise AssertionError(f"lm_audio: {failed}")
+    del params, toks
     torch.cuda.empty_cache()
     return launches
 
@@ -2505,10 +3134,12 @@ def main() -> int:
     from repro_torch.core import tx_app
     from repro_torch.fault import recovery as frec
     from repro_torch.fault import soak
+    from repro_torch.launch import serve
     from repro_torch.kernels import _build
     from repro_torch.kernels import embedding_reduce as er
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import hash_probe as hp
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.kernels import tx_commit as tc
@@ -2577,7 +3208,7 @@ def main() -> int:
 
     # LM serving: the kernels at the serve shapes, then the engine
     ctx = local_context()
-    lm_entries = phase_lm_kernels(torch, np, F, pa, fa, ref, smi)
+    lm_entries = phase_lm_kernels(torch, np, F, pa, fa, ref, lm_configs, smi)
     phase_lm_serve_f32(torch, np, eng, rb, lm_configs, model, pa, fa, ctx,
                        smi)
     crash = phase_lm_crash(torch, eng, lm_configs, model, pk, pa, fa, soak,
@@ -2589,10 +3220,31 @@ def main() -> int:
         torch, np, eng, rb, lm_configs, model, pk, pa, fa, ref, ctx, smi,
         phase="lm_moe_serve", arch=LM_MOE_ARCH, requests=LM_MOE_REQUESTS,
         seed=SEED + 35, moe=moe)
+    # the other families, each after the previous model's weights are freed
+    vlm_launches = phase_lm_serve(
+        torch, np, eng, rb, lm_configs, model, pk, pa, fa, ref, ctx, smi,
+        phase="lm_vlm_serve", arch=LM_VLM_ARCH, requests=LM_VLM_REQUESTS,
+        seed=SEED + 40, extra=lambda cfg, params: lm_media_check(
+            torch, model, fa, params, cfg, ctx, SEED + 44))
+    hybrid_launches, hybrid_f32 = phase_lm_hybrid_serve(
+        torch, np, eng, serve, rb, lm_configs, model, ops, pa, fa, ref, ctx,
+        smi)
+    phase_lm_ssm_serve(torch, np, eng, serve, rb, lm_configs, model, pa, fa,
+                       ctx, smi)
+    audio_launches = phase_lm_audio(torch, np, lm_configs, model, ops, pa,
+                                    fa, ref, ctx, smi)
     for name, e in lm_entries.items():
         e["launches"] = (launches[name] + crash["launches"][name]
-                         + moe_launches[name])
+                         + moe_launches[name] + vlm_launches[name]
+                         + hybrid_launches[name] + audio_launches[name])
         e["moe_shape"]["launches"] = moe_launches[name]
+        e["vlm_shape"]["launches"] = vlm_launches[name]
+    flash = lm_entries["flash_attention"]
+    flash["hybrid_shape"]["launches"] = hybrid_launches["flash_attention"]
+    # the f32 hybrid shape runs in a check, not on a main path
+    flash["hybrid_f32_shape"]["launches"] = 0
+    flash["hybrid_f32_shape"]["check_launches"] = hybrid_f32
+    flash["audio_shape"]["launches"] = audio_launches["flash_attention"]
     entries.update(lm_entries)
 
     dead = [k for k, e in entries.items() if not e["launches"]]

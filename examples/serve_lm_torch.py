@@ -8,8 +8,12 @@ through the CUDA paged-attention kernel.
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu
     PYTHONPATH=src python examples/serve_lm_torch.py --device cpu --paged \
         --arch qwen3-moe-30b-a3b                                  # MoE
+    PYTHONPATH=src python examples/serve_lm_torch.py --device cpu \
+        --arch hymba-1.5b                                         # hybrid
 
-``--arch`` serves that config's reduced form (dense or MoE families).
+``--arch`` serves that config's reduced form: dense, MoE and vlm
+(``qwen2-vl-7b``) on either path, ssm (``rwkv6-1.6b``) and hybrid
+(``hymba-1.5b``) on the dense path only (``--paged`` refuses them).
 
 The fault and durability flags pass through to ``repro_torch.launch.serve``:
 ``--inject-faults SEED``, ``--snapshot-dir DIR``, ``--snapshot-every N``,

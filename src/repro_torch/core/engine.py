@@ -598,11 +598,18 @@ def _lm_step_dense(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
                                      device=valid.device) < n_free)
     slot_tgt = torch.where(admit_ok, slot_ids, nslots)
 
-    adm_state, adm_logits = prefill_fn(params, prompts.to(I32))
-    adm_next = _argmax(adm_logits)
-    new_layers = {k: _set_slots(v, slot_tgt, adm_state.layers[k])
-                  for k, v in dec_post.layers.items()}
-    new_pos = set_drop(dec_post.pos, (slot_tgt.long(),), adm_state.pos)
+    # the padded admission batch is prefilled as JAX prefills it (an MoE
+    # block's capacity counts its tokens), but only when a prompt is
+    # admitted (one host read per step): with none, every row it would
+    # write is dropped
+    new_layers, new_pos = dec_post.layers, dec_post.pos
+    adm_next = torch.zeros_like(slot_ids)
+    if bool(admit_ok.any()):
+        adm_state, adm_logits = prefill_fn(params, prompts.to(I32))
+        adm_next = _argmax(adm_logits)
+        new_layers = {k: _set_slots(v, slot_tgt, adm_state.layers[k])
+                      for k, v in dec_post.layers.items()}
+        new_pos = set_drop(dec_post.pos, (slot_tgt.long(),), adm_state.pos)
     slot_active, slot_queue, slot_done, slot_last, slot_cap, slot_out = _seat(
         cfg, slot_tgt, admit_ok, srcq, caps, adm_next, slot_active,
         slot_queue, slot_done, slot_last, slot_cap, slot_out)

@@ -99,7 +99,8 @@ def engine_state_from_numpy(d, device,
 def lm_params_from_numpy(d, device) -> dict:
     """LM params (the JAX package's nested tree: ``embed``, L-stacked
     ``layers``, ``final_norm``[, ``lm_head``]) with every array's dtype
-    kept, bf16 included."""
+    kept, bf16 included: any family's subtrees (``attn``, ``mlp``,
+    ``moe`` with its f32 router, ``tmix``/``cmix``, ``ssm``)."""
     if isinstance(d, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in d.items()}
     return _tensor(d, device)

@@ -8,9 +8,15 @@ in response rings → clients poll and return credit.
     PYTHONPATH=src python -m repro_torch.launch.serve --paged   # on a GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
-It serves the reduced (tiny, f32) config of ``--arch`` (a dense or MoE
-config, e.g. ``--arch qwen3-moe-30b-a3b``) with random weights from
-``--seed``. The fault and durability flags are the JAX
+It serves the reduced (tiny, f32) config of ``--arch`` with random
+weights from ``--seed``: a dense or MoE config (e.g. ``--arch
+qwen3-moe-30b-a3b``), the vlm ``qwen2-vl-7b`` (M-RoPE positions, no
+media: the engine's prompts are tokens), or the recurrent
+``rwkv6-1.6b`` (ssm) and ``hymba-1.5b`` (hybrid), which decode on the
+dense path only, so ``--paged`` refuses them as the JAX package does. The
+audio family takes codebook frames, which the engine's rings do not
+carry: ``musicgen-large`` runs through ``models.prefill`` and
+``decode_step`` instead. The fault and durability flags are the JAX
 launcher's: ``--inject-faults SEED`` drives the request path through a
 seeded ``fault.FaultInjector``; ``--snapshot-dir`` / ``--snapshot-every``
 / ``--durability-mode`` flush the paged engine (and its host cold tier)
@@ -40,15 +46,15 @@ from repro_torch.models.layers import dtype_of
 from repro_torch.parallel.sharding import local_context
 
 
-def build_engine(cfg, ctx, ecfg: eng.LMEngineConfig, params, device="cuda"):
-    """(step, initial state) for either decode substrate; ``step(state)``
-    returns the next state. The paged step updates the page pool in place,
-    so a state passed to ``step`` must not be used again."""
+def engine_step(cfg, ctx, ecfg: eng.LMEngineConfig, params, device="cuda"):
+    """``step(state) -> state`` of either decode substrate. The paged step
+    updates the page pool in place, so a state passed to ``step`` must not
+    be used again."""
     if ecfg.paged:
         def step(s):
             return eng.lm_engine_step(s, ecfg, cfg, ctx, params)
 
-        return step, eng.lm_make_paged(ecfg, cfg, ctx, device)
+        return step
 
     def prefill_fn(p, prompts):
         st = make_decode_state(cfg, ctx, ecfg.admit_per_step, ecfg.cache_len,
@@ -63,9 +69,17 @@ def build_engine(cfg, ctx, ecfg: eng.LMEngineConfig, params, device="cuda"):
         return eng.lm_engine_step(s, ecfg, cfg, ctx, params, prefill_fn,
                                   decode_fn)
 
-    state = eng.lm_make(
+    return step
+
+
+def build_engine(cfg, ctx, ecfg: eng.LMEngineConfig, params, device="cuda"):
+    """(step, initial state) for either decode substrate (see
+    :func:`engine_step`)."""
+    step = engine_step(cfg, ctx, ecfg, params, device)
+    if ecfg.paged:
+        return step, eng.lm_make_paged(ecfg, cfg, ctx, device)
+    return step, eng.lm_make(
         ecfg, make_decode_state(cfg, ctx, ecfg.slots, ecfg.cache_len, device))
-    return step, state
 
 
 def main(argv=None):
@@ -121,6 +135,12 @@ def main(argv=None):
 
     device = torch.device(args.device)
     cfg = reduced(get_config(args.arch)).replace(dtype="float32")
+    if cfg.num_codebooks:
+        ap.error(f"--arch {args.arch}: the engine serves token prompts, "
+                 "not codebook frames")
+    if args.paged and cfg.family in ("ssm", "hybrid"):
+        ap.error(f"--paged: the {cfg.family} family decodes on the dense "
+                 "path only")
     ctx = local_context()
     params = init_params(args.seed, cfg, ctx, device)
     ecfg = eng.LMEngineConfig(

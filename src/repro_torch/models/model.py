@@ -1,5 +1,9 @@
 """Top-level LM: init, prefill and decode (dense per-slot ring caches, or
-the shared page pool), dense and MoE families."""
+the shared page pool), for all six families. The vlm family's M-RoPE
+positions are the text stub (t = h = w) and its media embeddings are
+added at the first positions of a prefill; the audio family takes
+(B, S, K) codebook frames and returns (B, K, V) logits a step. The
+recurrent families (ssm, hybrid) decode on the dense path only."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
@@ -18,7 +22,7 @@ I32 = torch.int32
 
 
 class DecodeState(NamedTuple):
-    layers: Any  # L-stacked per-layer ring states {"k", "v", "pos"}
+    layers: Any  # L-stacked per-layer states (tf.layer_state_zeros)
     pos: torch.Tensor  # (B,) tokens already in context (next write pos)
 
 
@@ -48,9 +52,19 @@ def init_params(seed: int, cfg: ModelConfig, ctx: ParallelContext,
     return params
 
 
-def _positions_for(tokens):
-    b, s = tokens.shape
-    return torch.arange(s, dtype=I32, device=tokens.device)[None].expand(b, s)
+def _positions_for(cfg: ModelConfig, tokens):
+    """(B, S) positions of a prompt (tokens (B, S) or (B, S, K)); M-RoPE
+    takes them as (3, B, S), the text stub's t = h = w."""
+    b, s = tokens.shape[:2]
+    pos = torch.arange(s, dtype=I32, device=tokens.device)[None].expand(b, s)
+    return pos.expand(3, b, s) if cfg.mrope else pos
+
+
+def _step_input(params, tokens, cfg, ctx):
+    """One decoding token a sequence, (B,) or codebooks (B, K), embedded
+    as (B, 1, D)."""
+    tok = tokens[:, None] if tokens.dim() == 1 else tokens[:, None, :]
+    return shard(embed_apply(params["embed"], tok, cfg), ctx)
 
 
 def _head(params, h, cfg):
@@ -74,27 +88,38 @@ def make_decode_state(cfg: ModelConfig, ctx: ParallelContext, batch: int,
 
 
 def prefill(params, tokens, state: DecodeState, cfg: ModelConfig,
-            ctx: ParallelContext, *, chunk: int = 512, backend="auto"):
-    """Fill the decode state from a prompt. Returns (new_state,
-    last_logits (B, V) f32)."""
+            ctx: ParallelContext, *, media=None, chunk: int = 512,
+            backend="auto", all_logits: bool = False):
+    """Fill the decode state from a prompt (B, S), or codebook frames
+    (B, S, K). ``media`` (B, M, D), for a vlm config, is added to the
+    embeddings of the first M positions. Returns (new_state, last_logits
+    (B, V), or (B, K, V), f32); with ``all_logits`` the logits of every
+    position, (B, S, V) or (B, S, K, V): the teacher-forced rows."""
     plan = tf.plan_for(cfg, ctx)
-    h = shard(embed_apply(params["embed"], tokens, cfg), ctx)
+    h = embed_apply(params["embed"], tokens, cfg)
+    if cfg.media_tokens and media is not None:
+        m = media.shape[1]
+        h = torch.cat([h[:, :m] + media.to(h.dtype), h[:, m:]], dim=1)
+    h = shard(h, ctx)
     h, new_layers = tf.stack_apply(
-        params["layers"], h, cfg, plan, ctx, _positions_for(tokens),
+        params["layers"], h, cfg, plan, ctx, _positions_for(cfg, tokens),
         states=state.layers, chunk=chunk, backend=backend)
-    logits = _head(params, h[:, -1:], cfg)
-    return DecodeState(new_layers, state.pos + tokens.shape[1]), logits[:, 0]
+    new_state = DecodeState(new_layers, state.pos + tokens.shape[1])
+    if all_logits:
+        return new_state, _head(params, h, cfg)
+    return new_state, _head(params, h[:, -1:], cfg)[:, 0]
 
 
 def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
                 ctx: ParallelContext):
-    """One token per sequence. tokens: (B,). Returns (new_state,
-    logits (B, V))."""
+    """One token per sequence. tokens: (B,) or codebooks (B, K). Returns
+    (new_state, logits (B, V) or (B, K, V))."""
     plan = tf.plan_for(cfg, ctx)
-    h = shard(embed_apply(params["embed"], tokens[:, None], cfg), ctx)
+    h = _step_input(params, tokens, cfg, ctx)
     cur = state.pos
-    h, new_layers = tf.stack_apply(params["layers"], h, cfg, plan, ctx,
-                                   cur[:, None].to(I32), states=state.layers)
+    h, new_layers = tf.stack_apply(
+        params["layers"], h, cfg, plan, ctx,
+        tf.token_positions(cfg, cur.to(I32)), states=state.layers)
     return DecodeState(new_layers, cur + 1), _head(params, h, cfg)[:, 0]
 
 
@@ -104,8 +129,12 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
 
 def check_paged_support(cfg: ModelConfig) -> None:
     """The paged path stores pages in bshd layout and walks full causal
-    context; windowed and dot-layout caches keep the dense decode path."""
+    context; families with recurrent state, and windowed or dot-layout
+    caches, keep the dense decode path."""
     tf.check_family(cfg)
+    if cfg.attn_free or cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"paged decode needs a pure-attention family, got {cfg.family}")
     if cfg.kv_cache_layout != "bshd":
         raise NotImplementedError("paged decode stores pages in bshd layout")
     if cfg.sliding_window:
@@ -156,9 +185,10 @@ def paged_decode_step(params, tokens, kv, pcfg, cfg: ModelConfig,
     cur = kv.lengths  # stale length = position of the new token
     aux = tf.PagedAux(page_table=kv.page_table, lengths=cur,
                       backend=kernel_backend)
-    h = shard(embed_apply(params["embed"], tokens[:, None], cfg), ctx)
+    h = _step_input(params, tokens, cfg, ctx)
     h, new_states = tf.stack_apply(
-        params["layers"], h, cfg, plan, ctx, cur[:, None].to(I32),
+        params["layers"], h, cfg, plan, ctx,
+        tf.token_positions(cfg, cur.to(I32)),
         states={"kp": kv.k_pages, "vp": kv.v_pages}, paged=aux)
     logits = _head(params, h, cfg)
     kv = pk.append_token_batch(kv, pcfg, new_states["k_new"],
@@ -179,7 +209,7 @@ def prefill_kv(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
     plan = tf.plan_for(cfg, ctx)
     h = shard(embed_apply(params["embed"], tokens, cfg), ctx)
     h, kvs = tf.stack_apply(
-        params["layers"], h, cfg, plan, ctx, _positions_for(tokens),
+        params["layers"], h, cfg, plan, ctx, _positions_for(cfg, tokens),
         chunk=chunk, emit_kv=True, backend=kernel_backend,
         capacity_tokens=capacity_tokens)
     return kvs["k"], kvs["v"], _head(params, h[:, -1:], cfg)[:, 0]

@@ -1,11 +1,11 @@
-"""Decoder blocks and the layer stack, dense and MoE families.
+"""Decoder blocks and the layer stack, for all six families: dense, MoE,
+vlm (M-RoPE) and audio (codebooks) attention blocks, the attention-free
+RWKV6 block (ssm) and the attention + Mamba block (hybrid).
 
 The JAX package scans one block over L-stacked parameters; here the
 stacked layout is kept (every leaf of ``params["layers"]`` has a leading
 L dimension, so parameters cross from JAX unchanged) and the scan is a
-Python loop over layer views. The other families (recurrent state,
-M-RoPE and codebook front ends) are not ported yet and raise
-``NotImplementedError``.
+Python loop over layer views.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     dtype_of, mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
 )
@@ -28,12 +29,15 @@ def plan_for(cfg: ModelConfig, ctx: ParallelContext) -> HeadPlan:
     return head_plan(cfg.num_heads, cfg.num_kv_heads, max(ctx.tp, 1))
 
 
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """The port runs the dense and MoE attention families, so far."""
-    if cfg.family not in ("dense", "moe"):
+    """Refuse a family the port does not know."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(dense and MoE decoder blocks only)"
+            f"{cfg.name}: unknown family {cfg.family!r} (the port runs "
+            f"{', '.join(FAMILIES)})"
         )
 
 
@@ -45,11 +49,20 @@ def block_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
     check_family(cfg)
     dt = dtype_of(cfg.dtype)
     d = cfg.d_model
+    if cfg.family == "ssm":  # rwkv6
+        return {
+            "ln1": rmsnorm_init(d, dt, device),
+            "tmix": ssm_mod.rwkv_tmix_init(gen, cfg, device),
+            "ln2": rmsnorm_init(d, dt, device),
+            "cmix": ssm_mod.rwkv_cmix_init(gen, cfg, device),
+        }
     p = {
         "ln1": rmsnorm_init(d, dt, device),
         "attn": attn_mod.attn_init(gen, cfg, plan, device),
         "ln2": rmsnorm_init(d, dt, device),
     }
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_mod.mamba_init(gen, cfg, device)
     if cfg.is_moe:
         p["moe"] = moe_mod.moe_init(gen, cfg, device)
     else:
@@ -80,12 +93,24 @@ def stack(trees):
 
 def layer_state_zeros(cfg: ModelConfig, plan: HeadPlan, batch: int,
                       cache_len: int, device):
-    """Per-layer ring-cache decode state over ``cache_len`` slots (the
-    sliding window when set); ``pos`` holds the absolute position in each
-    slot (-1 = empty)."""
+    """Per-layer decode state. Attention caches are rings over
+    ``cache_len`` slots (the sliding window when set); ``pos`` holds the
+    absolute position in each slot (-1 = empty). The recurrent states
+    ``s`` are f32 whatever the dtype: ssm (B, H, hd, hd) with the token
+    shifts ``tshift``/``cshift`` (B, D); hybrid (B, din / 64, ssm_state,
+    64) beside its attention ring."""
     check_family(cfg)
     dt = dtype_of(cfg.dtype)
     hd = cfg.resolved_head_dim
+    if cfg.family == "ssm":
+        h, shd = ssm_mod._heads(cfg)
+        return {
+            "s": torch.zeros((batch, h, shd, shd), dtype=F32, device=device),
+            "tshift": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                  device=device),
+            "cshift": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                  device=device),
+        }
     sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
     kv = plan.kv_phys
@@ -95,8 +120,27 @@ def layer_state_zeros(cfg: ModelConfig, plan: HeadPlan, batch: int,
     else:
         k = torch.zeros((batch, sc, kv, hd), dtype=dt, device=device)
         v = torch.zeros((batch, sc, kv, hd), dtype=dt, device=device)
-    pos = torch.full((batch, sc), -1, dtype=torch.int32, device=device)
-    return {"k": k, "v": v, "pos": pos}
+    st = {"k": k, "v": v,
+          "pos": torch.full((batch, sc), -1, dtype=torch.int32,
+                            device=device)}
+    if cfg.family == "hybrid":
+        din = cfg.d_model * cfg.ssm_expand
+        st["s"] = torch.zeros((batch, din // 64, cfg.ssm_state, 64),
+                              dtype=F32, device=device)
+    return st
+
+
+def _cur_pos(positions):
+    """The decoding token's (B,) positions from (B, 1) or M-RoPE's
+    (3, B, 1)."""
+    return positions[0, :, 0] if positions.dim() == 3 else positions[:, 0]
+
+
+def token_positions(cfg: ModelConfig, cur_pos):
+    """(B,) positions as qkv takes them: (B, 1), or (3, B, 1) for
+    M-RoPE (the text stub: t = h = w)."""
+    pos = cur_pos[:, None]
+    return pos.expand(3, *pos.shape) if cfg.mrope else pos
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +166,8 @@ def _paged_decode_attn_ro(params, x, cfg, plan, state, cur_pos,
     page slice, read only. Attends over the stale pool through the stats
     walk and LSE-merges the current token's fresh k/v. Returns
     (y, {"k_new", "v_new"}) with the (B, kvp, hd) new kv."""
-    q, k, v = attn_mod.qkv(params, x, cfg, plan, cur_pos[:, None])
+    q, k, v = attn_mod.qkv(params, x, cfg, plan,
+                           token_positions(cfg, cur_pos))
     k_new, v_new = k[:, 0], v[:, 0]
     out = attn_mod.paged_decode_attention_ro(
         q, state["kp"], state["vp"], paged.page_table, paged.lengths,
@@ -150,7 +195,8 @@ def _ring_decode_attn(params, x, cfg, plan, state, cur_pos):
     """x: (B,1,D); state k/v: (B,Sc,kvp,hd); cur_pos: (B,) position of the
     new token. Writes the token into its ring slot, attends. Returns
     (y, new_state)."""
-    q, k, v = attn_mod.qkv(params, x, cfg, plan, cur_pos[:, None])
+    q, k, v = attn_mod.qkv(params, x, cfg, plan,
+                           token_positions(cfg, cur_pos))
     sc = state["k"].shape[1]
     rows = torch.arange(x.shape[0], device=x.device)
     slot = (cur_pos % sc).long()
@@ -182,7 +228,8 @@ def _ring_decode_attn_ro(params, x, cfg, plan, state, cur_pos):
     current token's fresh k/v without writing the cache. Returns
     (y, {"k_new", "v_new"}); :func:`stack_apply` writes every layer's new
     kv with one scatter after the last layer."""
-    q, k, v = attn_mod.qkv(params, x, cfg, plan, cur_pos[:, None])
+    q, k, v = attn_mod.qkv(params, x, cfg, plan,
+                           token_positions(cfg, cur_pos))
     k_new, v_new = k[:, 0], v[:, 0]
     dot_layout = cfg.kv_cache_layout == "dot"
     sc = state["pos"].shape[1]
@@ -247,8 +294,9 @@ def _ring_prefill_write(state, k, v, cfg, start_pos=0):
 
 def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
                 ctx: ParallelContext, positions, state: Optional[dict] = None,
-                *, chunk: int = 512, paged: Optional[PagedAux] = None,
-                emit_kv: bool = False, backend: Optional[str] = "auto",
+                *, chunk: int = 512, gla_chunk: int = 32,
+                paged: Optional[PagedAux] = None, emit_kv: bool = False,
+                backend: Optional[str] = "auto",
                 capacity_tokens: Optional[int] = None):
     """One decoder block. Returns (y, new_state).
 
@@ -261,16 +309,19 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
     (``use_pallas_flash``): auto | cuda | ref. An MoE block runs with
     ``no_drop`` when decoding, and sizes its capacity from
     ``capacity_tokens`` when given (``moe.moe_apply``); its aux loss is
-    dropped (serving).
+    dropped (serving). The recurrent mixers (ssm, and hybrid's Mamba
+    half) run chunked over ``gla_chunk`` tokens.
     """
     check_family(cfg)
     S = x.shape[1]
     decode = state is not None and S == 1
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if cfg.family == "ssm":
+        return _rwkv_block(params, x, h, cfg, state, decode, gla_chunk)
     new_state = dict(state) if state is not None else None
 
     if decode:
-        cur_pos = positions[:, 0]  # positions (B, 1)
+        cur_pos = _cur_pos(positions)
         if paged is not None:
             att, new_state = _paged_decode_attn_ro(
                 params["attn"], h, cfg, plan, state, cur_pos, paged)
@@ -304,6 +355,20 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
         elif emit_kv:
             new_state = {"k": k, "v": v}  # raw prompt kv, no staging
 
+    if cfg.family == "hybrid":  # the Mamba half, averaged with attention
+        if decode:
+            sy, s_new = ssm_mod.mamba_step(params["ssm"], h[:, 0], cfg,
+                                           state["s"])
+            sy = sy[:, None]
+        else:
+            sy, s_new = ssm_mod.mamba_apply(
+                params["ssm"], h, cfg,
+                state=None if state is None else state["s"],
+                chunk=gla_chunk)
+        att = (att + sy) * 0.5
+        if new_state is not None:
+            new_state["s"] = s_new
+
     x = x + att
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
@@ -312,6 +377,22 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
     else:
         y2 = mlp_apply(params["mlp"], h2, cfg.act)
     return x + y2, new_state
+
+
+def _rwkv_block(params, x, h, cfg, state, decode, gla_chunk):
+    """The attention-free RWKV6 block: time mix, then channel mix, each
+    token-shifted against the carried last token when decoding."""
+    y, (tlast, s_new) = ssm_mod.rwkv_tmix_apply(
+        params["tmix"], h, cfg,
+        prev=state["tshift"] if decode else None,
+        state=None if state is None else state["s"], chunk=gla_chunk)
+    x = x + y
+    h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    y2, clast = ssm_mod.rwkv_cmix_apply(
+        params["cmix"], h2, prev=state["cshift"] if decode else None)
+    if state is None:
+        return x + y2, None
+    return x + y2, {"s": s_new, "tshift": tlast, "cshift": clast}
 
 
 # ---------------------------------------------------------------------------
@@ -356,9 +437,10 @@ def stack_apply(layers, x, cfg: ModelConfig, plan: HeadPlan,
         outs.append(new_st)
     new_states = stack(outs) if outs[0] is not None else None
     decode = states is not None and x.shape[1] == 1
-    if decode and paged is None and cfg.decode_appended_kv:
+    if decode and paged is None and cfg.decode_appended_kv \
+            and cfg.family != "ssm":
         # read-only ring mode: write every layer's new kv with one scatter
-        cur = positions[:, 0]
+        cur = _cur_pos(positions)
         sc = states["pos"].shape[2]
         bidx = torch.arange(cur.shape[0], device=x.device)
         slot = (cur % sc).long()
@@ -372,5 +454,7 @@ def stack_apply(layers, x, cfg: ModelConfig, plan: HeadPlan,
             merged["k"][:, bidx, slot] = new_states["k_new"]
             merged["v"][:, bidx, slot] = new_states["v_new"]
         merged["pos"][:, bidx, slot] = cur.to(torch.int32)
+        if "s" in new_states:  # hybrid: the new recurrent states
+            merged["s"] = new_states["s"]
         new_states = merged
     return h, new_states

@@ -1196,3 +1196,145 @@ def test_recover_through_the_commit_kernel_equals_plain(dev, tmp_path):
             stats["tx_records"] if backend == "cuda" else 0)
     _same(out["ref"], out["cuda"], "recover cuda vs ref")
     _same(flushed, out["cuda"], "recovered vs the last flush")
+
+
+# -------------------- vlm, hybrid, ssm and audio serving --------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,s,window", [
+    (25, 5, 2048, 1024),  # hymba-1.5b: hd 64, G 5, the window bites
+    (32, 32, 512, 0),  # musicgen-large: hd 64, G 1
+    (28, 4, 512, 0),  # qwen2-vl-7b: hd 128, G 7
+])
+def test_flash_attention_at_the_family_serve_shapes(dev, dtype, h, kvh, s,
+                                                    window):
+    """The flash prefill at the new families' head geometries against the
+    plain version (one prompt): in bf16 the TMA/wgmma path at hd 64 with
+    a window of 1,024 and at G 1; in f32 the CUDA-core path."""
+    hd = 64 if h in (25, 32) else 128
+    rng = np.random.default_rng(h + s + window)
+    host = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dtype) for shape in ((1, h, s, hd), (1, kvh, s, hd),
+                                     (1, kvh, s, hd))]
+    want = ref.flash_attention(*host, window=window)
+    fa.reset_launches()
+    got = fa.flash_attention(*(t.to(dev) for t in host), window=window)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1
+    tol = 2e-5 if dtype == torch.float32 else LM_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_stats_at_the_vlm_serve_shape(dev, dtype):
+    """The paged walk at qwen2-vl-7b's decode shape: B 32, KVH 4, G 7,
+    hd 128, 40-page tables of 16-token pages."""
+    rng = np.random.default_rng(7)
+    maxp, ps = 40, 16
+    lengths = rng.integers(512, maxp * ps, 32)
+    lengths[:3] = (0, maxp * ps, 1)
+    host, cuda = _paged_case(rng, dev, dtype, 32, 4, 7, 128, ps, maxp,
+                             lengths)
+    want = ref.paged_attention_stats(*host)
+    pa.reset_launches()
+    got = pa.paged_attention_stats(*cuda)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_attention_stats"] == 1
+    tol = LM_TOL[dtype]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("inclusive", [False, True])
+def test_chunked_gla_on_the_card_matches_the_cpu(dev, inclusive,
+                                                 monkeypatch):
+    """The chunked GLA engine in f32 (TF32 off) at rwkv6-1.6b's head shape
+    (32 heads of 64) and hymba's Mamba shape (50 heads, state 16, hd 64),
+    300 tokens with a carried state: the card against the CPU, outputs and
+    final state each within 1e-5 of their largest |value| (the two
+    devices sum the chunk products in other orders; the outputs reach
+    about 100)."""
+    from repro_torch.models import ssm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    h, dk, dv = (50, 16, 64) if inclusive else (32, 64, 64)
+    gen = torch.Generator().manual_seed(3)
+    q, k = torch.randn((2, 2, 300, h, dk), generator=gen)
+    v = torch.randn((2, 300, h, dv), generator=gen)
+    logw = -torch.rand((2, 300, h, dk), generator=gen) * 2
+    u = None if inclusive else torch.randn((h, dk), generator=gen) * 0.1
+    st = torch.randn((2, h, dk, dv), generator=gen)
+    want = ssm.chunked_gla(q, k, v, logw, u, chunk=32, state=st)
+    got = ssm.chunked_gla(*(t.to(dev) for t in (q, k, v, logw)),
+                          None if u is None else u.to(dev), chunk=32,
+                          state=st.to(dev))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max())
+
+
+def test_mamba_apply_on_the_card_matches_the_cpu(dev, monkeypatch):
+    """One hymba-1.5b Mamba branch at full width (d 1600, din 3200, state
+    16), f32, TF32 off, 2 x 200 tokens: the card against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("hymba-1.5b").replace(dtype="float32")
+    gen = torch.Generator().manual_seed(4)
+    params = ssm.mamba_init(gen, cfg, "cpu")
+    x = torch.randn((2, 200, cfg.d_model), generator=gen)
+    want = ssm.mamba_apply(params, x, cfg)
+    on_card = {k: ({n: t.to(dev) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(dev))
+               for k, v in params.items()}
+    got = ssm.mamba_apply(on_card, x.to(dev), cfg)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def _hybrid_prefill_and_decode(cfg, ctx, params, toks, dev, steps=4):
+    """prefill of ``toks`` into a window-sized ring (the flash kernel),
+    then ``steps`` greedy dense decode steps; every logit and the final
+    layer states."""
+    from repro_torch.models import model
+
+    st = model.make_decode_state(cfg, ctx, toks.shape[0],
+                                 cfg.sliding_window, dev)
+    st, logits = model.prefill(params, toks, st, cfg, ctx,
+                               backend="cuda")
+    outs = [logits]
+    for _ in range(steps):
+        st, logits = model.decode_step(params,
+                                       logits.argmax(-1).to(torch.int32),
+                                       st, cfg, ctx)
+        outs.append(logits)
+    return outs, st
+
+
+def test_hybrid_prefill_and_decode_are_bit_reproducible(dev):
+    """hymba-1.5b at full width cut to 2 layers, bf16: a flash prefill of
+    2 prompts of 2,048 tokens (window 1,024) and 4 decode steps, twice
+    from the same inputs: every logit and every layer state equal bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import local_context
+
+    cfg = get_config("hymba-1.5b").replace(num_layers=2,
+                                           use_pallas_flash=True)
+    ctx = local_context()
+    params = init_params(0, cfg, ctx, dev)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, (2, 2048)).astype(np.int32)).to(dev)
+    fa.reset_launches()
+    first, st1 = _hybrid_prefill_and_decode(cfg, ctx, params, toks, dev)
+    second, st2 = _hybrid_prefill_and_decode(cfg, ctx, params, toks, dev)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 2 * cfg.num_layers
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    for k in st1.layers:
+        assert torch.equal(st1.layers[k], st2.layers[k]), k

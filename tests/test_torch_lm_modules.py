@@ -77,15 +77,25 @@ def test_head_plan_matches_jax(h, kv, tp):
 
 
 def test_non_dense_families_raise():
-    for arch in ("rwkv6-1.6b", "hymba-1.5b", "musicgen-large",
-                 "qwen2-vl-7b"):
-        cfg = configs.reduced(configs.get_config(arch)).replace(
-            dtype="float32")
+    """A family the port does not know raises NotImplementedError, and the
+    paged path refuses the recurrent families, as JAX's does."""
+    cfg = configs.reduced(configs.get_config("qwen2.5-14b")).replace(
+        dtype="float32", family="retnet")
+    with pytest.raises(NotImplementedError):
+        model.init_params(0, cfg, sharding.local_context(), CPU)
+    for arch in ("rwkv6-1.6b", "hymba-1.5b"):
+        jcfg, tcfg = _cfgs(arch)
         with pytest.raises(NotImplementedError):
-            model.init_params(0, cfg, sharding.local_context(), CPU)
+            jmodel.check_paged_support(jcfg)
+        with pytest.raises(NotImplementedError):
+            model.check_paged_support(tcfg)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "qwen3-moe-30b-a3b"])
+FAMILY_ARCHS = ["qwen2.5-14b", "qwen3-moe-30b-a3b", "qwen2-vl-7b",
+                "musicgen-large", "rwkv6-1.6b", "hymba-1.5b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_init_params_shapes_and_scale_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     jp, _ = _params(jcfg)
