@@ -7,8 +7,9 @@ Qwen3-MoE-30B-A3B and Qwen2-VL-7B (paged), Hymba-1.5B and RWKV6-1.6B
 (dense ring engine) and MusicGen-large (prefill and decode) through the
 ORCA engine and the hand-written CUDA kernels, at deployment sizes,
 with the fault and durability layer (fault injection, chain failover,
-snapshots, the WAL and crash recovery) on the TX, KVS and LM paths, and
-holds every kernel against its plain PyTorch version.
+snapshots, the WAL and crash recovery) on the TX, KVS and LM paths;
+trains Qwen1.5-0.5B through the port's training launcher; and holds
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -99,12 +100,13 @@ Phases, each printing one JSON line:
                   teacher-forced check over 40 decode steps that must
                   decide at least 10% (and 64) of its rows with equal
                   argmax, and a per-layer walk check of the live pool;
-18. lm_moe_serve — the same for Qwen3-MoE-30B-A3B, all 48 layers at full
-                  width in bf16 (128 experts, top 8; 61 GB of weights),
-                  after the dense weights are freed: the same engine and
-                  requests, the same checks, and the share of (token,
-                  layer) top-8 expert sets on which the kernel and plain
-                  paths agree in the teacher-forced window (reported);
+18. lm_moe_serve — the same for Qwen3-MoE-30B-A3B at full width cut to
+                  24 of its 48 layers, in bf16 (128 experts, top 8; 31
+                  GB of weights), after the dense weights are freed: the
+                  same engine and requests, the same checks, and the share
+                  of (token, layer) top-8 expert sets on which the kernel
+                  and plain paths agree in the teacher-forced window
+                  (reported);
 19. lm_vlm_serve — Qwen2-VL-7B (M-RoPE, G 7), all 28 layers in bf16, the
                   same engine and checks, 32 requests, and a media prefill
                   (1,024 media positions) against the plain version and
@@ -128,7 +130,17 @@ Phases, each printing one JSON line:
                   bf16: 8 x 512 frames through prefill with the flash
                   kernel, then 64 decode steps; the plain version beside
                   it; the teacher-forced rows with the 10% share; every
-                  layer's flash call against its plain version.
+                  layer's flash call against its plain version;
+23. lm_train     — Qwen1.5-0.5B trained at full width and depth in bf16
+                  (remat on), 4 x 4,096 tokens a step: 10 steps through
+                  the launcher's train step, data pipeline and schedule,
+                  every loss and grad norm finite, with a checkpoint after
+                  step 5; steps 6-10 resumed from it equal the
+                  uninterrupted run bit for bit; every bf16 product of one
+                  step (``layers.MatmulF32``) with its grads held against
+                  the plain upcast product's on the same inputs and
+                  cotangent; the card against the CPU in f32 at 2 layers.
+                  No hand-written kernel runs on this path.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch raises and exits non-zero before the last line. Without a
@@ -223,6 +235,7 @@ LM_LONG = (4, 16384)
 # (G = 8) in lm_kernels
 LM_MOE_ARCH = "qwen3-moe-30b-a3b"
 LM_MOE_REQUESTS = 48  # cut from lm_serve's 96 to keep the script's time
+LM_MOE_LAYERS = 24  # cut from 48 (widths kept) to make room for lm_train
 LM_MOE_HEADS = (32, 4)
 # the other four families, each at full width and depth in bf16 with
 # random weights from the seed (src/repro_torch/configs/): Qwen2-VL-7B (28
@@ -253,6 +266,23 @@ LM_PREFILL_TF_STEPS = 16  # their decode steps after the prefill
 LM_FAMILY_PROFILE_STEPS = 4  # the profiled steps of hybrid, ssm and audio
 LM_SNAPSHOT_STEP = 24  # the engine step the teacher-forced check starts at
 LM_TF_STEPS = 40  # teacher-forced decode steps (at least 32)
+# training: Qwen1.5-0.5B at full width and depth (src/repro_torch/configs/
+# qwen1_5_0_5b.py: 24 layers, d_model 1024, 16 q / 16 kv heads, d_ff 2816,
+# vocab 151936, QKV bias, tied embeddings, remat), bf16, random weights
+# from the seed, at train_4k's seq_len 4,096 with its global batch cut
+# from 256 to 4 (16,384 tokens a step): LM_TRAIN_STEPS steps through the
+# launcher's build_train_step, the data pipeline (seed 0) and the
+# warmup-cosine rate, a checkpoint after step LM_TRAIN_SAVE_AT and a
+# resume from it; each product's grads against the plain upcast product
+# within LM_TRAIN_GRAD_TOL of the largest |plain grad|; the card against
+# the CPU in f32 at LM_TRAIN_CPU (layers, batch, tokens) at full width,
+# within LM_TRAIN_F32_TOL of each leaf's scale
+LM_TRAIN_ARCH = "qwen1.5-0.5b"
+LM_TRAIN_BATCH = 4
+LM_TRAIN_STEPS, LM_TRAIN_SAVE_AT = 10, 5
+LM_TRAIN_GRAD_TOL = 1e-2
+LM_TRAIN_CPU = (2, 2, 256)
+LM_TRAIN_F32_TOL = 1e-5
 # the profiled window: a copy of the engine state after this step runs the
 # next LM_PROFILE_STEPS steps under torch.profiler
 LM_PROFILE_STEP, LM_PROFILE_STEPS = 40, 16
@@ -2464,7 +2494,7 @@ def lm_walk_check(torch, pa, ref, kv, seed, g):
 
 def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
                    smi, phase="lm_serve", arch=LM_ARCH, requests=LM_REQUESTS,
-                   seed=SEED + 30, moe=None, extra=None):
+                   seed=SEED + 30, moe=None, extra=None, layers=None):
     """All layers of ``arch`` in bf16 with the flash prefill,
     ``requests`` requests through the kernel engine (the main path: its
     launch counts), then the plain engine for free-running agreement
@@ -2472,13 +2502,15 @@ def phase_lm_serve(torch, np, eng, rb, cfg_mod, model, pk, pa, fa, ref, ctx,
     the kernel run's pool (with ``moe``, the MoE module, also the share of
     expert sets the two paths agree on), and the per-layer walk check.
     ``extra(cfg, params)`` adds a check of its own: it returns (key,
-    result, failure message or None). Frees the weights and returns the
-    kernel run's launch counts."""
+    result, failure message or None). ``layers`` cuts the depth (widths
+    kept). Frees the weights and returns the kernel run's launch
+    counts."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     start_gb = torch.cuda.memory_allocated() / 1e9
-    cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx, arch,
-                                           seed)
+    cfg, params, init_s, pbytes = lm_setup(
+        torch, cfg_mod, model, ctx, arch, seed,
+        **({"num_layers": layers} if layers else {}))
     prompts, caps = lm_requests(np, cfg, requests, seed + 2)
     ecfg = eng.LMEngineConfig(**LM_ENGINE, kernel_backend="auto")
     pcfg = eng.lm_paged_kv_config(ecfg, cfg, ctx)
@@ -3115,6 +3147,290 @@ def phase_lm_audio(torch, np, cfg_mod, model, ops, pa, fa, ref, ctx, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def _ratio(torch, got, want):
+    """max |got - want| over max |want| (0 where both are 0)."""
+    d = float((got.float() - want.float()).abs().max())
+    m = float(want.float().abs().max())
+    return d / m if m else (0.0 if d == 0 else float("inf"))
+
+
+def product_walk(torch, products, tol, fn):
+    """``fn()`` with every backward of the f32-output products
+    (``products``: pairs of the autograd Function and its plain product)
+    also held against the plain upcast product under autograd on the
+    call's own inputs and cotangent. Returns (fn's result, the walk: calls
+    checked, calls outside ``tol``, the largest max|Δ| / max|plain| of
+    grad_x and grad_w)."""
+    walk = {"calls_checked": 0, "outside_tolerance": 0, "max_ratio": 0.0,
+            "tolerance": tol}
+    saved = {cls: vars(cls)["backward"] for cls, _ in products}
+
+    def checked_for(cls, plain):
+        def checked(ctx_, g):
+            x, w = ctx_.saved_tensors  # unpacked once (remat recomputes)
+            got = cls.grads(x, w, g, ctx_.needs_input_grad)
+            with torch.enable_grad():
+                xs = x.detach().requires_grad_()
+                ws = w.detach().requires_grad_()
+                want = torch.autograd.grad(plain(xs.float(), ws.float()),
+                                           (xs, ws), g)
+            r = max(_ratio(torch, a, b) for a, b in zip(got, want)
+                    if a is not None)
+            walk["calls_checked"] += 1
+            walk["outside_tolerance"] += int(r > tol)
+            walk["max_ratio"] = max(walk["max_ratio"], r)
+            return got
+        return staticmethod(checked)
+
+    for cls, plain in products:
+        cls.backward = checked_for(cls, plain)
+    try:
+        return fn(), walk
+    finally:
+        for cls, orig in saved.items():
+            cls.backward = orig
+
+
+def plain_products(torch, products, fn):
+    """``fn()`` with the f32-output products replaced by their plain
+    upcast products (autograd's own backward)."""
+    for cls, plain in products:
+        cls.apply = staticmethod(
+            lambda x, w, plain=plain: plain(x.float(), w.float()))
+    try:
+        return fn()
+    finally:
+        for cls, _ in products:
+            del cls.apply
+
+
+def tree_diff(torch, leaves, a, b):
+    """Largest |a - b| over the leaves of two trees (lists of them), in
+    ``leaves``' (sorted key) order, in f32."""
+    return max(float((x.float() - y.float()).abs().max())
+               for ta, tb in zip(a, b)
+               for x, y in zip(leaves(ta), leaves(tb)))
+
+
+def phase_lm_train(torch, np, cfg_mod, model, libs, ctx, smi):
+    """Qwen1.5-0.5B at full width and depth in bf16 (remat on), trained
+    through the launcher's ``build_train_step`` on the data pipeline's
+    batches (seed 0) at the warmup-cosine rate, LM_TRAIN_BATCH x 4,096
+    tokens a step: LM_TRAIN_STEPS steps (every loss and grad norm finite;
+    step times, tokens/s, peak memory and the bf16 share of peak) with an
+    async checkpoint after step LM_TRAIN_SAVE_AT; that checkpoint restored
+    into fresh params and state and the rest of the steps run again,
+    equal bit for bit (else a second resume, and the difference held to
+    the spread of the two); every bf16 product of one step walked against
+    the plain upcast product (within LM_TRAIN_GRAD_TOL of its largest
+    |grad|), and the whole grad tree's difference from a step through the
+    plain products (reported: chaotic across 24 bf16 layers); the card
+    against the CPU in f32 at LM_TRAIN_CPU. Launches no hand-written
+    kernel: ``libs``' counters must not move."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.checkpoint import AsyncCheckpointer, restore
+    from repro_torch.data import DataConfig, TokenPipeline, batch_for_step
+    from repro_torch.launch import train
+    from repro_torch.models import layers, moe
+    from repro_torch.tree import leaves
+
+    def counted():
+        return {k: n for lib in libs for k, n in lib.launches.items()}
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    before = counted()
+    cfg = cfg_mod.get_config(LM_TRAIN_ARCH)
+    full_batch = cfg_mod.SHAPES["train_4k"].global_batch
+    shape = dataclasses.replace(cfg_mod.SHAPES["train_4k"],
+                                global_batch=LM_TRAIN_BATCH)
+    ocfg = optim.AdamWConfig()
+    step_fn = train.build_train_step(cfg, ctx, ocfg)
+    products = ((layers.MatmulF32, torch.mm), (moe.BmmF32, torch.bmm))
+    secs = {}
+    t0 = time.perf_counter()
+    params = model.init_params(SEED + 80, cfg, ctx, "cuda")
+    opt = optim.init(params, ocfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pbytes = tree_bytes(torch, leaves(params))
+    state_b = pbytes + tree_bytes(torch, leaves(opt.m) + leaves(opt.v))
+    room = check_room("lm_train", 2 * state_b)
+
+    def to_card(host):
+        return {k: torch.from_numpy(v).to("cuda") for k, v in host.items()}
+
+    def run(params, opt, start, n, ckpt=None):
+        pipe = TokenPipeline(cfg, shape, DataConfig(seed=0),
+                             start_step=start)
+        losses, gnorms, times = [], [], []
+        try:
+            for _ in range(n):
+                step, host = next(pipe)
+                batch = to_card(host)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                params, opt, _, m = step_fn(params, opt, None, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                if ckpt is not None and step + 1 == LM_TRAIN_SAVE_AT:
+                    ckpt.save(step + 1, {"params": params, "opt": opt})
+        finally:
+            pipe.close()
+        return params, opt, losses, gnorms, times
+
+    root = tempfile.mkdtemp(prefix="orca-lm-train-")
+    try:
+        t0 = time.perf_counter()
+        ckpt = AsyncCheckpointer(root)
+        p_a, o_a, losses, gnorms, times = run(params, opt, 0,
+                                              LM_TRAIN_STEPS, ckpt)
+        secs["train"] = time.perf_counter() - t0
+        peak_train = torch.cuda.max_memory_allocated()
+
+        # every product of one step against its plain version, then the
+        # grad tree against a step through the plain products
+        t0 = time.perf_counter()
+        batch0 = to_card(batch_for_step(cfg, shape, DataConfig(seed=0), 0))
+        (_, _, g_fn), walk = product_walk(
+            torch, products, LM_TRAIN_GRAD_TOL,
+            lambda: train.grads_of(params, batch0, cfg, ctx))
+        walk["calls_expected"] = 7 * cfg.num_layers + 1  # and the head
+        _, _, g_plain = plain_products(
+            torch, products, lambda: train.grads_of(params, batch0, cfg, ctx))
+        num = sum(float(((a.float() - b.float()) ** 2).sum())
+                  for a, b in zip(leaves(g_fn), leaves(g_plain)))
+        den = sum(float((b.float() ** 2).sum()) for b in leaves(g_plain))
+        walk["grad_tree_rel_diff_vs_plain_products"] = (num / den) ** 0.5
+        secs["products"] = time.perf_counter() - t0
+        del g_fn, g_plain, batch0
+        ckpt.wait()
+        del params, opt
+        torch.cuda.empty_cache()
+
+        def resume():
+            fresh = model.init_params(SEED + 81, cfg, ctx, "cuda")
+            tree, step = restore(root, LM_TRAIN_SAVE_AT, {
+                "params": fresh, "opt": optim.init(fresh, ocfg)})
+            del fresh
+            return run(tree["params"], tree["opt"], step,
+                       LM_TRAIN_STEPS - step)
+
+        t0 = time.perf_counter()
+        p_b, o_b, losses_b, _, times_b = resume()
+        secs["resume"] = time.perf_counter() - t0
+        tail = losses[LM_TRAIN_SAVE_AT:]
+        first = max(tree_diff(torch, leaves, [p_a, o_a.m, o_a.v],
+                              [p_b, o_b.m, o_b.v]),
+                    max(abs(a - b) for a, b in zip(tail, losses_b)))
+        resumed = {"steps": len(losses_b), "losses": losses_b,
+                   "bit_equal": first == 0.0 and int(o_a.step) == int(
+                       o_b.step), "max_abs_diff": first}
+        if not resumed["bit_equal"]:
+            p_c, o_c, losses_c, _, _ = resume()
+            resumed["second_losses"] = losses_c
+            resumed["spread_of_two_resumes"] = max(
+                tree_diff(torch, leaves, [p_b, o_b.m, o_b.v],
+                          [p_c, o_c.m, o_c.v]),
+                max(abs(a - b) for a, b in zip(losses_b, losses_c)))
+            del p_c, o_c
+        del p_a, o_a, p_b, o_b
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # the card against the CPU in f32, full width, LM_TRAIN_CPU
+    t0 = time.perf_counter()
+    n_layers, b32, s32 = LM_TRAIN_CPU
+    c32 = cfg.replace(num_layers=n_layers, dtype="float32")
+    sh32 = dataclasses.replace(shape, seq_len=s32, global_batch=b32)
+    step32 = train.build_train_step(c32, ctx, ocfg)
+    host = batch_for_step(c32, sh32, DataConfig(seed=0), 0)
+    p_card = model.init_params(SEED + 82, c32, ctx, "cuda")
+    o32 = optim.init(p_card, ocfg)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_to(p_card, dev)
+        o = optim.OptState(tree_to(o32.m, dev), tree_to(o32.v, dev),
+                           torch.ones((), dtype=torch.int32, device=dev))
+        b = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        loss, _, grads = train.grads_of(p, b, c32, ctx)
+        p2, _, _, m = step32(p, o, None, b)
+        res[dev] = (float(loss), float(m["grad_norm"]), float(m["lr"]),
+                    grads, p2)
+    (l_g, n_g, lr, g_g, p_g), (l_c, n_c, _, g_c, p_c) = (res["cuda"],
+                                                          res["cpu"])
+    grad_ratio = max(_ratio(torch, a.cpu(), b) for a, b in zip(
+        leaves(g_g), leaves(g_c)))
+    param_excess = max(
+        float((a.cpu() - b).abs().max())
+        - (2 * lr + LM_TRAIN_F32_TOL * float(b.abs().max()))
+        for a, b in zip(leaves(p_g), leaves(p_c)))
+    cpu = {"layers": n_layers, "batch": [b32, s32], "lr": lr,
+           "loss": [l_g, l_c], "grad_norm": [n_g, n_c],
+           "loss_rel_diff": abs(l_g - l_c) / abs(l_c),
+           "grad_norm_rel_diff": abs(n_g - n_c) / abs(n_c),
+           "grad_leaf_max_ratio": grad_ratio,
+           "param_excess_over_bound": param_excess,
+           "tolerance": LM_TRAIN_F32_TOL}
+    del res, g_g, g_c, p_g, p_c, p_card, o32
+    torch.cuda.empty_cache()
+    secs["cpu_f32"] = time.perf_counter() - t0
+
+    after = counted()
+    launched = {k: after[k] - before[k] for k in after}
+    tokens = shape.tokens
+    med = statistics.median(times[1:])
+    flops = cfg_mod.model_flops(cfg, shape)
+    out = {"phase": "lm_train", "nvidia_smi": smi, "arch": LM_TRAIN_ARCH,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": (cfg.num_heads, cfg.num_kv_heads), "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
+           "param_count": cfg_mod.param_count(cfg),
+           "params_gb": pbytes / 1e9, "state_gb": state_b / 1e9,
+           "init_s": init_s, "allocated_gb_at_start": start_gb,
+           "shape": {"seq_len": shape.seq_len,
+                     "global_batch": shape.global_batch,
+                     "global_batch_cut_from": full_batch},
+           "tokens_per_step": tokens, "losses": losses,
+           "grad_norms": gnorms, "step_s": times,
+           "step_s_median_2_on": med, "tokens_per_s": tokens / med,
+           "model_flops_per_step": flops,
+           "bf16_share_of_peak": flops / med / PEAK_FLOPS["bfloat16"],
+           "peak_gb_train": peak_train / 1e9,
+           "peak_gb_phase": torch.cuda.max_memory_allocated() / 1e9,
+           "resume": {**resumed, "step_s": times_b},
+           "products": walk, "cpu_f32": cpu, "room": room,
+           "hand_written_launches": launched, "seconds": secs}
+    emit(out)
+    failed = None
+    if not np.isfinite(losses + gnorms + losses_b).all():
+        failed = f"non-finite loss or grad norm: {losses}, {gnorms}"
+    elif not resumed["bit_equal"] and not (
+            first <= resumed["spread_of_two_resumes"]):
+        failed = f"resume differs: {resumed}"
+    elif walk["calls_checked"] != walk["calls_expected"] \
+            or walk["outside_tolerance"]:
+        failed = f"product walk {walk}"
+    elif cpu["loss_rel_diff"] > LM_TRAIN_F32_TOL \
+            or cpu["grad_norm_rel_diff"] > LM_TRAIN_F32_TOL \
+            or grad_ratio > LM_TRAIN_F32_TOL or param_excess > 0:
+        failed = f"card against CPU {cpu}"
+    elif any(launched.values()):
+        failed = f"hand-written kernels launched: {launched}"
+    if failed:
+        raise AssertionError(f"lm_train: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -3219,7 +3535,7 @@ def main() -> int:
     moe_launches = phase_lm_serve(
         torch, np, eng, rb, lm_configs, model, pk, pa, fa, ref, ctx, smi,
         phase="lm_moe_serve", arch=LM_MOE_ARCH, requests=LM_MOE_REQUESTS,
-        seed=SEED + 35, moe=moe)
+        seed=SEED + 35, moe=moe, layers=LM_MOE_LAYERS)
     # the other families, each after the previous model's weights are freed
     vlm_launches = phase_lm_serve(
         torch, np, eng, rb, lm_configs, model, pk, pa, fa, ref, ctx, smi,
@@ -3233,6 +3549,10 @@ def main() -> int:
                        ctx, smi)
     audio_launches = phase_lm_audio(torch, np, lm_configs, model, ops, pa,
                                     fa, ref, ctx, smi)
+    # training, after the serving weights are freed: no hand-written
+    # kernel on its path
+    phase_lm_train(torch, np, lm_configs, model, (hp, tc, er, pa, fa), ctx,
+                   smi)
     for name, e in lm_entries.items():
         e["launches"] = (launches[name] + crash["launches"][name]
                          + moe_launches[name] + vlm_launches[name]

@@ -1,7 +1,8 @@
 """Architecture hyper-parameters: the JAX package's ``ModelConfig`` with the
-same fields and defaults, its parameter count and its ``reduced`` test
-config. A plain dataclass copy, so the port reads every config file
-without importing the JAX package.
+same fields and defaults, the four input shapes (``ShapeConfig``,
+``SHAPES``) with their applicability rule, the parameter and model-FLOP
+counts, and the ``reduced`` test config. Plain dataclass copies, so the
+port reads every config file without importing the JAX package.
 """
 from __future__ import annotations
 
@@ -79,6 +80,40 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape. ``kind`` selects the step: train | prefill |
+    decode."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+#: archs allowed to run long_500k (sub-quadratic sequence mixing only).
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """long_500k only for the ssm and hybrid families; the rest apply to
+    every arch."""
+    if shape.name == "long_500k":
+        return cfg.family in LONG_CONTEXT_FAMILIES
+    return True
+
+
 # ---------------------------------------------------------------------------
 # Parameter counting
 # ---------------------------------------------------------------------------
@@ -128,6 +163,16 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     n += cfg.num_layers * per_layer
     n += d  # final norm
     return n
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS = 6 N tokens for training (N the active parameters of
+    an MoE), 2 N tokens for a prefill, and 2 N for one token a sequence
+    when decoding."""
+    n = param_count(cfg, active_only=cfg.is_moe)
+    if shape.kind == "decode":
+        return 2.0 * n * shape.global_batch
+    return (6.0 if shape.kind == "train" else 2.0) * n * shape.tokens
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import optim
 from repro_torch.core import cpoll as cp
 from repro_torch.core import engine as eng
 from repro_torch.core import kvstore as kv
@@ -104,6 +105,14 @@ def lm_params_from_numpy(d, device) -> dict:
     if isinstance(d, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in d.items()}
     return _tensor(d, device)
+
+
+def opt_state_from_numpy(d, device) -> optim.OptState:
+    """An AdamW ``OptState`` (moments ``m``/``v`` shaped like the params,
+    ``step``) with every dtype kept: f32 or bf16 moments, int32 step."""
+    return optim.OptState(m=lm_params_from_numpy(d["m"], device),
+                          v=lm_params_from_numpy(d["v"], device),
+                          step=_tensor(d["step"], device))
 
 
 def paged_kv_state_from_numpy(d, device) -> pk.PagedKVState:

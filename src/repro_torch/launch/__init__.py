@@ -1,1 +1,2 @@
-"""Launchers: the LM serving loop (``serve``)."""
+"""Launchers: the LM serving loop (``serve``) and the training loop
+(``train``)."""

@@ -4,9 +4,10 @@ and cache-based decode.
 Physical layout (``parallel/sharding.py``): query heads padded to
 ``plan.hp``, kv heads padded to ``plan.kvp`` and replicated ``plan.repl``
 times; padded query-head outputs are masked to zero, so the function
-equals the logical unpadded model. Tensors keep the JAX package's layouts:
-activations (B, S, H, hd), caches (B, Smax, KV, hd), page pools
-(NP, PS, KV, hd).
+equals the logical unpadded model; replicated kv heads are tied at init
+and their gradients re-tied every step (:func:`tie_kv_grads`). Tensors
+keep the JAX package's layouts: activations (B, S, H, hd), caches
+(B, Smax, KV, hd), page pools (NP, PS, KV, hd).
 """
 from __future__ import annotations
 
@@ -66,6 +67,27 @@ def attn_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
         p["bk"] = torch.zeros((plan.kv_phys, hd), dtype=dt, device=device)
         p["bv"] = torch.zeros((plan.kv_phys, hd), dtype=dt, device=device)
     return p
+
+
+def tie_kv_grads(grads_attn: dict, plan: HeadPlan) -> dict:
+    """Average the gradients of each kv replication group (``plan.repl``
+    consecutive heads), so replicated kv heads stay tied; the identity at
+    ``repl == 1`` (one device)."""
+    if plan.repl == 1:
+        return grads_attn
+    out = dict(grads_attn)
+    for name in ("wk", "wv", "bk", "bv"):
+        if name not in out:
+            continue
+        g = out[name]
+        ax = g.dim() - 2  # the kv-head axis: (..., kv_phys, head_dim)
+        shape = list(g.shape)
+        assert shape[ax] == plan.kv_phys, (name, shape, plan)
+        grouped = g.reshape(shape[:ax] + [plan.kvp, plan.repl]
+                            + shape[ax + 1:])
+        mean = grouped.mean(dim=ax + 1, keepdim=True)
+        out[name] = mean.expand(grouped.shape).reshape(g.shape)
+    return out
 
 
 # ---------------------------------------------------------------------------

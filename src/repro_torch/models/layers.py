@@ -4,7 +4,8 @@ Functional, as in the JAX package: ``*_init(gen, ...) -> params`` and
 ``*_apply(params, x, ...) -> y``. Parameters are plain dicts of tensors.
 Matmuls return f32 whatever the storage dtype, as JAX's
 ``preferred_element_type=f32`` does: a bf16 product rounded to bf16 would
-change every later layer.
+change every later layer. Under autograd, a bf16 product on the card goes
+through :class:`MatmulF32`, whose backward is JAX's.
 """
 from __future__ import annotations
 
@@ -36,6 +37,36 @@ def dense_init(gen, in_dim: int, out_dim: int, dtype, device,
     return (normal(gen, (in_dim, out_dim), device) * std).to(dtype)
 
 
+class MatmulF32(torch.autograd.Function):
+    """``x (M, i) @ w (i, o)`` in f32 from bf16/f16 operands on the card,
+    with the JAX package's VJP of ``preferred_element_type=f32``: the f32
+    cotangent times the other operand upcast to f32, in f32, then cast to
+    the operand's dtype. (``torch.mm(out_dtype=)`` has no derivative of
+    its own, and rounding the cotangent to bf16 first gives other bits.)"""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return MatmulF32.grads(x, w, g, ctx.needs_input_grad)
+
+    @staticmethod
+    def grads(x, w, g, needs=(True, True)):
+        """(grad_x, grad_w) of cotangent ``g`` (None where not needed)."""
+        gx = (g @ w.float().T).to(x.dtype) if needs[0] else None
+        gw = (x.float().T @ g).to(w.dtype) if needs[1] else None
+        return gx, gw
+
+
+def needs_grad(*ts) -> bool:
+    """True when autograd records a product of ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def matmul(x, w):
     """``x (..., i) @ w (i, o)`` returned in f32."""
     if x.dtype == F32 and w.dtype == F32:
@@ -43,8 +74,10 @@ def matmul(x, w):
     if (x.is_cuda and x.dtype == w.dtype
             and x.dtype in (torch.bfloat16, torch.float16)):
         lead = x.shape[:-1]
-        return torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=F32).reshape(*lead, w.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1])
+        y = MatmulF32.apply(x2, w) if needs_grad(x, w) \
+            else torch.mm(x2, w, out_dtype=F32)
+        return y.reshape(*lead, w.shape[-1])
     return x.float() @ w.float()
 
 

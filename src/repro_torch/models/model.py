@@ -1,7 +1,8 @@
-"""Top-level LM: init, prefill and decode (dense per-slot ring caches, or
-the shared page pool), for all six families. The vlm family's M-RoPE
-positions are the text stub (t = h = w) and its media embeddings are
-added at the first positions of a prefill; the audio family takes
+"""Top-level LM: init, the training forward and loss, prefill and decode
+(dense per-slot ring caches, or the shared page pool), for all six
+families. The vlm family's M-RoPE positions are the text stub
+(t = h = w) and its media embeddings are added at the first positions
+of a prefill or a training forward; the audio family takes
 (B, S, K) codebook frames and returns (B, K, V) logits a step. The
 recurrent families (ssm, hybrid) decode on the dense path only."""
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import tie_kv_grads
 from repro_torch.models.layers import (
     dtype_of, embed_apply, embed_init, lm_head_apply, lm_head_init, rmsnorm,
     rmsnorm_init,
@@ -73,6 +75,60 @@ def _head(params, h, cfg):
                          embed_params=params["embed"])
 
 
+def _embed(params, tokens, cfg, media):
+    """Token (or codebook) embeddings, with a vlm's ``media`` (B, M, D)
+    added at the first M positions."""
+    h = embed_apply(params["embed"], tokens, cfg)
+    if cfg.media_tokens and media is not None:
+        m = media.shape[1]
+        h = torch.cat([h[:, :m] + media.to(h.dtype), h[:, m:]], dim=1)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Training: forward, loss, gradient post-processing
+# ---------------------------------------------------------------------------
+
+def forward(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
+            media=None, chunk: int = 512):
+    """The stateless forward over tokens (B, S) or codebook frames
+    (B, S, K). Returns (f32 logits (B, S, V) or (B, S, K, V), the MoE aux
+    loss summed over the layers)."""
+    plan = tf.plan_for(cfg, ctx)
+    h = shard(_embed(params, tokens, cfg, media), ctx)
+    h, aux = tf.stack_train(params["layers"], h, cfg, plan, ctx,
+                            _positions_for(cfg, tokens), chunk=chunk)
+    return _head(params, h, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, ctx: ParallelContext, *,
+            chunk: int = 512):
+    """batch: {"tokens", "labels"[, "media"]} -> (loss, {"ce", "aux"}):
+    the mean next-token cross entropy plus 0.01 x the aux loss. The gold
+    logit is a gather, which is the JAX package's one-hot sum (it adds
+    only zeros to the one value) without a (B, S, V) mask."""
+    logits, aux = forward(params, batch["tokens"], cfg, ctx,
+                          media=batch.get("media"), chunk=chunk)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        batch["labels"].long()[..., None])[..., 0]
+    ce = torch.mean(lse - gold)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def postprocess_grads(grads, cfg: ModelConfig, ctx: ParallelContext):
+    """Re-tie the kv-replica gradients (``attention.tie_kv_grads``) so
+    replicated physical kv heads stay equal; the identity at world size
+    1."""
+    plan = tf.plan_for(cfg, ctx)
+    if cfg.attn_free or plan.repl == 1:
+        return grads
+    layers = dict(grads["layers"])
+    if "attn" in layers:
+        layers["attn"] = tie_kv_grads(layers["attn"], plan)
+    return {**grads, "layers": layers}
+
+
 # ---------------------------------------------------------------------------
 # Serving: prefill + dense decode
 # ---------------------------------------------------------------------------
@@ -96,11 +152,7 @@ def prefill(params, tokens, state: DecodeState, cfg: ModelConfig,
     (B, V), or (B, K, V), f32); with ``all_logits`` the logits of every
     position, (B, S, V) or (B, S, K, V): the teacher-forced rows."""
     plan = tf.plan_for(cfg, ctx)
-    h = embed_apply(params["embed"], tokens, cfg)
-    if cfg.media_tokens and media is not None:
-        m = media.shape[1]
-        h = torch.cat([h[:, :m] + media.to(h.dtype), h[:, m:]], dim=1)
-    h = shard(h, ctx)
+    h = shard(_embed(params, tokens, cfg, media), ctx)
     h, new_layers = tf.stack_apply(
         params["layers"], h, cfg, plan, ctx, _positions_for(cfg, tokens),
         states=state.layers, chunk=chunk, backend=backend)

@@ -17,7 +17,8 @@ What keeps the port equal to JAX:
   0..k-1);
 * the dispatch positions come from a stable argsort and are exact;
 * the expert products return f32 from bf16 operands, as JAX's
-  ``preferred_element_type=f32``;
+  ``preferred_element_type=f32``, with JAX's VJP under autograd
+  (:class:`BmmF32`);
 * the combine adds each token's k weighted outputs one after another, in
   order j = 0..k-1, from f32 zeros: no atomics, so two runs on the card
   give the same bits.
@@ -31,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import act_fn, dense_init, dtype_of, normal
+from repro_torch.models.layers import (
+    act_fn, dense_init, dtype_of, needs_grad, normal,
+)
 
 F32 = torch.float32
 
@@ -93,12 +96,40 @@ def _dispatch_positions(flat_e, num_experts: int):
     return pos
 
 
+class BmmF32(torch.autograd.Function):
+    """``a (E, C, i) @ b (E, i, o)`` in f32 from bf16/f16 operands on the
+    card, with the JAX package's VJP (as ``layers.MatmulF32``): the f32
+    cotangent times the other operand upcast to f32, cast to the
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return BmmF32.grads(a, b, g, ctx.needs_input_grad)
+
+    @staticmethod
+    def grads(a, b, g, needs=(True, True)):
+        """(grad_a, grad_b) of cotangent ``g`` (None where not needed)."""
+        ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype) \
+            if needs[0] else None
+        gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype) \
+            if needs[1] else None
+        return ga, gb
+
+
 def _bmm(a, b):
     """``a (E, C, i) @ b (E, i, o)`` returned in f32."""
     if a.dtype == F32 and b.dtype == F32:
         return torch.bmm(a, b)
     if (a.is_cuda and a.dtype == b.dtype
             and a.dtype in (torch.bfloat16, torch.float16)):
+        if needs_grad(a, b):
+            return BmmF32.apply(a, b)
         return torch.bmm(a, b, out_dtype=F32)
     return torch.bmm(a.float(), b.float())
 

@@ -5,13 +5,15 @@ RWKV6 block (ssm) and the attention + Mamba block (hybrid).
 The JAX package scans one block over L-stacked parameters; here the
 stacked layout is kept (every leaf of ``params["layers"]`` has a leading
 L dimension, so parameters cross from JAX unchanged) and the scan is a
-Python loop over layer views.
+Python loop over layer views: :func:`stack_apply` for serving,
+:func:`stack_train` (with the MoE aux loss and remat) for training.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -21,6 +23,7 @@ from repro_torch.models.layers import (
     dtype_of, mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
 )
 from repro_torch.parallel.sharding import HeadPlan, ParallelContext, head_plan
+from repro_torch.tree import tree_map
 
 F32 = torch.float32
 
@@ -70,21 +73,14 @@ def block_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
     return p
 
 
-def _map(fn, *trees):
-    """Apply ``fn`` leaf-wise over nested dicts of tensors."""
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def layer(tree, i: int):
     """Layer ``i``'s view of an L-stacked tree."""
-    return _map(lambda t: t[i], tree)
+    return tree_map(lambda t: t[i], tree)
 
 
 def stack(trees):
     """L per-layer trees -> one L-stacked tree."""
-    return _map(lambda *ts: torch.stack(ts), *trees)
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +293,11 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
                 *, chunk: int = 512, gla_chunk: int = 32,
                 paged: Optional[PagedAux] = None, emit_kv: bool = False,
                 backend: Optional[str] = "auto",
-                capacity_tokens: Optional[int] = None):
-    """One decoder block. Returns (y, new_state).
+                capacity_tokens: Optional[int] = None,
+                with_aux: bool = False):
+    """One decoder block. Returns (y, new_state), or with ``with_aux``
+    (y, new_state, aux): the MoE load-balance loss, f32 zero for the other
+    families.
 
     The mode is inferred: ``state is None`` -> stateless forward;
     seq == 1 with state -> decode; else prefill into the ring state. With
@@ -309,15 +308,16 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
     (``use_pallas_flash``): auto | cuda | ref. An MoE block runs with
     ``no_drop`` when decoding, and sizes its capacity from
     ``capacity_tokens`` when given (``moe.moe_apply``); its aux loss is
-    dropped (serving). The recurrent mixers (ssm, and hybrid's Mamba
-    half) run chunked over ``gla_chunk`` tokens.
+    returned only ``with_aux`` (training). The recurrent mixers (ssm, and
+    hybrid's Mamba half) run chunked over ``gla_chunk`` tokens.
     """
     check_family(cfg)
     S = x.shape[1]
     decode = state is not None and S == 1
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if cfg.family == "ssm":
-        return _rwkv_block(params, x, h, cfg, state, decode, gla_chunk)
+        out = _rwkv_block(params, x, h, cfg, state, decode, gla_chunk)
+        return (*out, _zero_aux(x)) if with_aux else out
     new_state = dict(state) if state is not None else None
 
     if decode:
@@ -372,11 +372,18 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
     x = x + att
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
-        y2, _ = moe_mod.moe_apply(params["moe"], h2, cfg, no_drop=decode,
-                                  capacity_tokens=capacity_tokens)
+        y2, aux = moe_mod.moe_apply(params["moe"], h2, cfg, no_drop=decode,
+                                    capacity_tokens=capacity_tokens)
     else:
-        y2 = mlp_apply(params["mlp"], h2, cfg.act)
+        y2, aux = mlp_apply(params["mlp"], h2, cfg.act), None
+    if with_aux:
+        aux = _zero_aux(x) if aux is None else aux
+        return x + y2, new_state, aux
     return x + y2, new_state
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=F32, device=x.device)
 
 
 def _rwkv_block(params, x, h, cfg, state, decode, gla_chunk):
@@ -403,13 +410,47 @@ def stack_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
     """L-stacked block parameters, drawn one layer at a time (so only one
     layer's f32 draws are ever live) into preallocated stacked tensors."""
     first = block_init(gen, cfg, plan, device)
-    out = _map(lambda t: torch.empty((cfg.num_layers, *t.shape),
-                                     dtype=t.dtype, device=t.device), first)
+    out = tree_map(lambda t: torch.empty((cfg.num_layers, *t.shape),
+                                         dtype=t.dtype, device=t.device),
+                   first)
     for i in range(cfg.num_layers):
         lp = first if i == 0 else block_init(gen, cfg, plan, device)
-        _map(lambda dst, src: dst.copy_(src), layer(out, i), lp)
+        tree_map(lambda dst, src: dst.copy_(src), layer(out, i), lp)
         del lp
     return out
+
+
+def unbind(tree):
+    """The per-layer views of an L-stacked tree, each leaf unbound once (a
+    backward then stacks the per-layer grads, where selecting layer by
+    layer would add a whole-stack tensor a layer)."""
+    if isinstance(tree, dict):
+        per = {k: unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def stack_train(layers, x, cfg: ModelConfig, plan: HeadPlan,
+                ctx: ParallelContext, positions, *, chunk: int = 512):
+    """The stateless (training) stack: every block in order, each
+    rematerialised in the backward when ``cfg.remat`` (the JAX package's
+    ``jax.checkpoint`` of the scan body). Returns (y, aux): the MoE aux
+    losses summed over the layers in order from f32 zero."""
+    def body(lp, h):
+        y, _, a = block_apply(lp, h, cfg, plan, ctx, positions, chunk=chunk,
+                              with_aux=True)
+        return y, a
+
+    aux = _zero_aux(x)
+    h = x
+    for lp in unbind(layers):
+        if cfg.remat:
+            h, a = checkpoint(body, lp, h, use_reentrant=False)
+        else:
+            h, a = body(lp, h)
+        aux = aux + a
+    return h, aux
 
 
 def stack_apply(layers, x, cfg: ModelConfig, plan: HeadPlan,

@@ -1338,3 +1338,164 @@ def test_hybrid_prefill_and_decode_are_bit_reproducible(dev):
         assert torch.equal(a, b)
     for k in st1.layers:
         assert torch.equal(st1.layers[k], st2.layers[k]), k
+
+
+# ------------------------------- training -----------------------------------
+
+def _grad_fns(y):
+    """The names of ``y``'s autograd node and the nodes it feeds from."""
+    fn = y.grad_fn
+    return {type(fn).__name__} | {type(n).__name__
+                                  for n, _ in fn.next_functions if n}
+
+
+def _plain_grads(fn, x, w, g):
+    """grad_x, grad_w of the plain upcast product ``fn(x.float(),
+    w.float())`` under autograd, cotangent ``g``: the f32 grads cast to
+    the operands' dtype by autograd's own cast."""
+    xs, ws = x.detach().requires_grad_(), w.detach().requires_grad_()
+    y = fn(xs.float(), ws.float())
+    return torch.autograd.grad(y, (xs, ws), g)
+
+
+@pytest.mark.parametrize("m,i,o", [(1, 64, 32), (300, 1024, 2816),
+                                   (4096, 1024, 3072), (512, 1024, 151936)])
+def test_matmul_f32_function_matches_the_plain_product(dev, m, i, o):
+    """``layers.matmul`` on bf16 operands under autograd goes through
+    ``MatmulF32``: its f32 output equals ``torch.mm(out_dtype=f32)``, and
+    its grads the plain upcast product's within 1e-2 of their largest
+    |value| (the cast to bf16 is the same; the f32 products may sum in
+    another order)."""
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(m + o)
+    x = torch.randn((m, i), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((i, o), generator=gen, device=dev) / i ** 0.5).to(
+        torch.bfloat16)
+    g = torch.randn((m, o), generator=gen, device=dev)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = layers.matmul(xs, ws)
+    assert "MatmulF32Backward" in _grad_fns(y)
+    assert y.dtype == torch.float32
+    assert torch.equal(y.detach(), torch.mm(x, w, out_dtype=torch.float32))
+    gx, gw = torch.autograd.grad(y, (xs, ws), g)
+    px, pw = _plain_grads(torch.mm, x, w, g)
+    for got, want in ((gx, px), (gw, pw)):
+        assert got.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 1e-2 * want.float().abs().max()
+    with torch.no_grad():
+        assert layers.matmul(xs, ws).grad_fn is None
+
+
+@pytest.mark.parametrize("e,c,i,o", [(4, 8, 64, 32), (128, 40, 2048, 768),
+                                     (8, 512, 768, 2048)])
+def test_bmm_f32_function_matches_the_plain_product(dev, e, c, i, o):
+    """``moe._bmm`` on bf16 operands under autograd goes through
+    ``BmmF32``, held to the plain upcast ``bmm`` as the matmul is."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(e * c)
+    a = torch.randn((e, c, i), generator=gen, device=dev).to(torch.bfloat16)
+    b = (torch.randn((e, i, o), generator=gen, device=dev) / i ** 0.5).to(
+        torch.bfloat16)
+    g = torch.randn((e, c, o), generator=gen, device=dev)
+    a_s, b_s = a.clone().requires_grad_(), b.clone().requires_grad_()
+    y = moe._bmm(a_s, b_s)
+    assert "BmmF32Backward" in _grad_fns(y)
+    assert torch.equal(y.detach(), torch.bmm(a, b, out_dtype=torch.float32))
+    ga, gb = torch.autograd.grad(y, (a_s, b_s), g)
+    pa_, pb = _plain_grads(torch.bmm, a, b, g)
+    for got, want in ((ga, pa_), (gb, pb)):
+        assert got.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 1e-2 * want.float().abs().max()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen3-moe-30b-a3b",
+                                  "hymba-1.5b"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch, monkeypatch):
+    """One ``build_train_step`` of a reduced f32 config (remat on), TF32
+    off: loss and grad norm within 1e-5, params within 2 lr + 1e-5 of
+    their scale, the card against the CPU."""
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import local_context
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = configs.reduced(configs.get_config(arch)).replace(
+        dtype="float32", remat=True)
+    ctx = local_context()
+    shape = configs.ShapeConfig("t", 32, 4, "train")
+    batch = batch_for_step(cfg, shape, DataConfig(seed=2), 0)
+    params = init_params(0, cfg, ctx, "cpu")
+    opt = optim.init(params, optim.AdamWConfig())._replace(
+        step=torch.tensor(1, dtype=torch.int32))
+    step = train.build_train_step(cfg, ctx, optim.AdamWConfig(), chunk=8)
+    outs = {}
+    for d in ("cpu", dev):
+        o = optim.OptState(_to(opt.m, d), _to(opt.v, d), opt.step.to(d))
+        outs[str(d)] = step(_to(params, d), o, None,
+                            {k: torch.from_numpy(v).to(d)
+                             for k, v in batch.items()})
+    (p_c, _, _, m_c), (p_g, _, _, m_g) = outs["cpu"], outs[str(dev)]
+    lr = float(m_c["lr"])
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m_g[k]) - float(m_c[k])) <= 1e-5 * abs(float(m_c[k]))
+    for a, b in zip(tree.leaves(p_c), tree.leaves(p_g)):
+        assert (b.cpu() - a).abs().max() <= 2 * lr + 1e-5 * a.abs().max()
+
+
+def test_bf16_train_steps_on_the_card_go_through_the_functions(dev):
+    """Two bf16 steps of a reduced qwen3-moe-30b-a3b with remat: both
+    Functions run in the backward, losses and grad norms finite, the
+    params keep bf16 and move."""
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, layers, moe
+    from repro_torch.parallel.sharding import local_context
+
+    cfg = configs.reduced(configs.get_config("qwen3-moe-30b-a3b")).replace(
+        remat=True)
+    ctx = local_context()
+    shape = configs.ShapeConfig("t", 64, 4, "train")
+    params = init_params(1, cfg, ctx, dev)
+    opt = optim.init(params, optim.AdamWConfig())._replace(
+        step=torch.tensor(1, dtype=torch.int32, device=dev))
+    step = train.build_train_step(cfg, ctx, optim.AdamWConfig(), chunk=8)
+    calls = {"mm": 0, "bmm": 0}
+    mm_bwd, bmm_bwd = (vars(layers.MatmulF32)["backward"],
+                       vars(moe.BmmF32)["backward"])
+
+    def count(name, fn):
+        def wrapped(ctx_, g):
+            calls[name] += 1
+            return fn.__func__(ctx_, g)
+        return staticmethod(wrapped)
+
+    layers.MatmulF32.backward = count("mm", mm_bwd)
+    moe.BmmF32.backward = count("bmm", bmm_bwd)
+    try:
+        p = params
+        for s in range(2):
+            batch = batch_for_step(cfg, shape, DataConfig(), s)
+            p, opt, _, m = step(p, opt, None, {
+                k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+            assert torch.isfinite(m["loss"]) and torch.isfinite(
+                m["grad_norm"])
+    finally:
+        layers.MatmulF32.backward = mm_bwd
+        moe.BmmF32.backward = bmm_bwd
+    assert calls["mm"] > 0 and calls["bmm"] == 2 * 3 * cfg.num_layers
+    for a, b in zip(tree.leaves(params), tree.leaves(p)):
+        assert b.dtype == a.dtype
+    assert not torch.equal(params["embed"]["tok"], p["embed"]["tok"])
