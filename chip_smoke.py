@@ -24,7 +24,9 @@ Phases, each printing one JSON line:
                   ways and 2^27 64-B values behind a 65,536 x 4 cache;
 3. kernels      — each KVS kernel against its plain version at the
                   engine's batch (256 requests on the loaded store);
-                  probe and cache_probe also at the load phase's 65,536;
+                  probe, cache_probe and get_walk also at the load
+                  phase's 65,536, get_walk beside the five calls it
+                  replaces (probe, clamp, select, fetch, select);
                   commit_buckets and write_rows also at the serve mix
                   (5% PUTs: about 244 of 256 entries aim at the sentinel
                   rows) and at 65,536 fresh keys;
@@ -32,7 +34,9 @@ Phases, each printing one JSON line:
                   zipf 0.99 keys, 1% absent) through two engines, ``auto``
                   (the kernels) and ``ref`` (the plain versions on the
                   card): equal responses and final states, GETs of loaded
-                  keys return their values, every kernel launched; the
+                  keys return their values, every kernel of the path
+                  launched (the GET walk one get_walk a step, no fetch:
+                  fetch runs in the kernel phase only); the
                   step's device µs and launches with the PUT plan's two
                   target sorts (which only the TPU commit needs) put back
                   and without them, in turns;
@@ -182,6 +186,7 @@ _CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {
     "probe": ("hash_probe.cu", "src/repro/kernels/hash_probe.py", 67),
     "fetch": ("hash_probe.cu", "src/repro/kernels/hash_probe.py", 170),
+    "get_walk": ("hash_probe.cu", "src/repro/kernels/hash_probe.py", 192),
     "cache_probe": ("hash_probe.cu", "src/repro/kernels/hash_probe.py", 122),
     "commit_buckets": ("hash_probe.cu", "src/repro/kernels/hash_probe.py",
                        226),
@@ -195,6 +200,12 @@ KERNELS = {
     "flash_attention": ("flash_attention.cu",
                         "src/repro/kernels/flash_attention.py", 68),
 }
+# the KVS kernels that the engine's step launches; fetch runs on no main
+# path (get_walk does the GET walk) and is held against its plain version
+# in the kernel phase only
+KVS_MAIN_PATH = ("probe", "get_walk", "cache_probe", "commit_buckets",
+                 "write_rows")
+CHECK_ONLY = ("fetch",)
 
 # ORCA-TX: 64-B values (benchmarks/bench_tx.py), the usual chain
 # replication factor of 3, a 2^18-record redo log per replica
@@ -536,7 +547,7 @@ PTXAS_SOURCES = ("flash_attention", "paged_attention", "embedding_reduce",
                  "tx_commit", "hash_probe")
 # the lookups redesigned to wait on one dependent round trip: their SASS
 # must call nothing (no 64-bit division routine) and ptxas must spill none
-LOOKUP_KERNELS = ("probe_kernel", "cache_probe_kernel")
+LOOKUP_KERNELS = ("probe_kernel", "get_walk_kernel", "cache_probe_kernel")
 # the PUT commits, whose lane maps use shifts: their SASS calls nothing
 COMMIT_KERNELS = ("commit_buckets_kernel", "write_rows_kernel")
 
@@ -667,7 +678,7 @@ def phase_device(torch, build):
 
     calls = {k: v["calls"] for k, v in hp_sass["functions"].items()
              if lookup(k, LOOKUP_KERNELS + COMMIT_KERNELS)}
-    if len(calls) != 8 or any(calls.values()):
+    if len(calls) != 10 or any(calls.values()):
         raise AssertionError(f"hash_probe: CALL instructions in the lookup "
                              f"or commit kernels' SASS (or instances "
                              f"missing): {calls}")
@@ -750,6 +761,39 @@ def probe_bytes(cfg, batch):
     return batch * (kw * 4 + 8 + 2 * w * (kw + 1) * 4 + 1 + 4)
 
 
+def get_walk_bytes(cfg, batch, found):
+    """What ``get_walk`` must move: probe's reads (the query, both ids,
+    both buckets' key words and pointers), found and the value rows
+    written, and a pool row read for each of the ``found`` hits."""
+    kw, w, vw = cfg.key_words, cfg.ways, cfg.val_words
+    return (batch * (kw * 4 + 8 + 2 * w * (kw + 1) * 4 + 1 + vw * 4)
+            + found * vw * 4)
+
+
+def composed_get(torch, hp, bucket_keys, bucket_ptr, pool, keys, h1, h2):
+    """The GET walk in five calls, as the port ran it before
+    ``get_walk``: probe, a clamp and a select of the pointers, fetch, and
+    a select zeroing the misses. Timed beside ``get_walk``."""
+    found, ptr = hp.probe(bucket_keys, bucket_ptr, keys, h1, h2)
+    np_ = pool.shape[0] - 1
+    vals = hp.fetch(pool, torch.where(found, torch.clamp(ptr, 0, np_), np_))
+    return torch.where(found[:, None], vals, 0), found
+
+
+def composition_entry(torch, outs, want, fn):
+    """The five-call walk on ``get_walk``'s inputs: its mismatches
+    against the plain version, its summed times by the kernel entry's
+    measures, and its device operations a call by name."""
+    dev, per = device_us(torch, fn)
+    return {"mismatches": sum(mismatches(torch, a, b)
+                              for a, b in zip(outs, want)),
+            "us": time_us(torch, fn), "device_us": dev,
+            "device_launches": sum(n for _, n in per.values()),
+            "device_ops": {k[:80]: n for k, (_, n) in per.items()},
+            "device_events_us": queued_us(torch, fn),
+            "device_cold_us": cold_device_us(torch, fn)}
+
+
 def cache_probe_bytes(cfg, batch):
     """What ``cache_probe`` must move: the query and the set id read, the
     set's keys and meta read, one value line read and written, hit and way
@@ -825,8 +869,11 @@ def commit_batches(torch, kv, cfg, state, g, recent, loaded, absent):
 
 def phase_kernels(torch, kv, hp, ref, cfg, state):
     """Each kernel against its plain version at the engine's batch; the
-    two lookups also at the load phase's; the two commits also at the
-    serve mix and at the load phase's batch."""
+    lookups and get_walk also at the load phase's, get_walk beside the
+    composition it replaces; the two commits also at the serve mix and at
+    the load phase's batch. Each entry's ``kernel_phase_launches``: the
+    wrapper's launches in this phase (not a main path)."""
+    hp.reset_launches()
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     keys, h1, h2, cset, picked = kvs_lookups(torch, kv, state, BATCH, g)
     np_ = state.pool_size
@@ -855,6 +902,19 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
                cache_probe_bytes(cfg, batch), batch=batch)
         entries["cache_probe" + tag]["hits"] = int(outs_p[0].sum())
         entries["probe" + tag]["found"] = int(found_p.sum())
+        pool = state.pool
+        want = ref.hash_get(bk, bp, pool, keys, h1, h2)
+        record("get_walk" + tag, hp.get(bk, bp, pool, keys, h1, h2), want,
+               lambda: hp.get(bk, bp, pool, keys, h1, h2),
+               lambda: ref.hash_get(bk, bp, pool, keys, h1, h2),
+               get_walk_bytes(cfg, batch, int(found_p.sum())), batch=batch)
+
+        def composed():
+            return composed_get(torch, hp, bk, bp, pool, keys, h1, h2)
+
+        entries["get_walk" + tag]["found"] = int(found_p.sum())
+        entries["get_walk" + tag]["composition"] = composition_entry(
+            torch, composed(), want, composed)
         return found_p, ptr_p
 
     found_p, ptr_p = lookups(keys, h1, h2, cset, BATCH)
@@ -911,8 +971,19 @@ def phase_kernels(torch, kv, hp, ref, cfg, state):
     lookups(*kvs_lookups(torch, kv, state, FILL_BATCH, g)[:4], FILL_BATCH,
             f"@{FILL_BATCH}")
 
-    emit({"phase": "kernels_vs_plain", "results": entry_summary(entries)})
+    launched = dict(hp.launches)
+    for k, v in entries.items():
+        v["kernel_phase_launches"] = launched[k.split("@")[0]]
+    emit({"phase": "kernels_vs_plain", "results": entry_summary(entries),
+          "composition": {k: v["composition"] for k, v in entries.items()
+                          if "composition" in v},
+          "launches": launched})
     check_entries(entries, "kernels_vs_plain")
+    bad = {k: v["composition"]["mismatches"] for k, v in entries.items()
+           if v.get("composition", {}).get("mismatches")}
+    if bad or not all(launched.values()):
+        raise AssertionError(f"kernels_vs_plain: the composition disagrees "
+                             f"{bad}, or a kernel unlaunched {launched}")
     return {k: v for k, v in entries.items() if "@" not in k}
 
 
@@ -1137,9 +1208,12 @@ def phase_serve(torch, np, eng, kv, hp, cfg, state, stored, smi):
     es_p, dr_p, step_p, loop_p, _, _, tot_p, launches_p = runs["ref"]
     same_responses(torch, dr_k, dr_p, "serve")
     same_state(torch, es_k, es_p, "serve: final state auto vs ref")
-    dead = [k for k, v in launches.items() if v == 0]
+    dead = [k for k in KVS_MAIN_PATH if launches[k] == 0]
     if dead:
         raise AssertionError(f"kernels never launched on the main path: {dead}")
+    if launches["get_walk"] != STEPS or any(launches[k] for k in CHECK_ONLY):
+        raise AssertionError(f"serve: the GET walk is not one get_walk a "
+                             f"step: {launches}")
     if any(launches_p.values()):
         raise AssertionError(f"the ref engine launched kernels: {launches_p}")
 
@@ -1608,9 +1682,9 @@ def phase_kvs_recover(torch, eng, kv, hp, soak, frec, smi):
     (``run_durability``), then a run that flushes every 2 steps (a full
     snapshot, then dirty-row deltas), a kill leaving a torn snapshot and
     segment tail, ``recover``, and engine steps from the recovered state
-    through the five hash kernels that must equal a twin's from the
-    flushed state through the plain versions (a ``ref`` engine), at this
-    store's shape."""
+    through the hash kernels of the main path that must equal a twin's
+    from the flushed state through the plain versions (a ``ref`` engine),
+    at this store's shape."""
     cfg = kv.KVConfig(**KV_RECOVER_SHAPE)
     store_b = tree_bytes(torch, kv.make(cfg, "meta"))
     room = check_room("kvs_recover", 6 * store_b)
@@ -1714,10 +1788,12 @@ def phase_kvs_recover(torch, eng, kv, hp, soak, frec, smi):
     out["recover"]["truncated"] = [os.path.basename(p)
                                    for p in stats["truncated"]]
     emit(out)
-    dead = [k for k, v in after.items() if not v]
-    if dead:
+    dead = [k for k in KVS_MAIN_PATH if not after[k]]
+    stray = [k for k in CHECK_ONLY for d in (arm_launches, run_launches,
+                                             after) if d[k]]
+    if dead or stray:
         raise AssertionError(f"kvs_recover: not launched after recovery: "
-                             f"{dead}")
+                             f"{dead}; launched off the main path: {stray}")
     out["launches"] = {k: arm_launches[k] + run_launches[k] + after[k]
                        for k in after}
     return out
@@ -3567,7 +3643,10 @@ def main() -> int:
     flash["audio_shape"]["launches"] = audio_launches["flash_attention"]
     entries.update(lm_entries)
 
-    dead = [k for k, e in entries.items() if not e["launches"]]
+    dead = [k for k, e in entries.items()
+            if not e["launches"] and k not in CHECK_ONLY]
+    for k in CHECK_ONLY:
+        entries[k]["main_path"] = False
     if dead or len(entries) != len(KERNELS):
         raise AssertionError(f"kernels not launched on their path: {dead}")
     emit({"kernels": list(entries.values())})

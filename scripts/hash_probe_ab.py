@@ -9,19 +9,24 @@ cache):
 - the PUT commits (``commit_buckets``, ``write_rows``): (a) the kernel
   phase's PUT batch, (b) the serve mix (5% PUTs, about 244 of 256 entries
   aimed at the sentinel rows), (c) one live entry, (d) the load phase's
-  65,536 fresh keys.
+  65,536 fresh keys;
+- the GET walk (``get``): the old build's ``orca_probe``, the clamp and
+  select, ``orca_fetch`` and the select zeroing misses (five calls,
+  ``chip_smoke.composed_get``) against the new ``orca_get`` (one), at
+  B = 1, 256 and 65,536, with the device launches a call.
 
     git show <rev>:src/repro_torch/kernels/csrc/hash_probe.cu \\
         > _scratch/old/hash_probe.cu
     python3 scripts/hash_probe_ab.py _scratch/old/hash_probe.cu \\
-        [--kernels probe,cache_probe,commit_buckets,write_rows]
+        [--kernels probe,cache_probe,commit_buckets,write_rows,get]
 
 "old" is the given source, built here with the port's nvcc flags into the
 ignored build directory and called through its C entry points, which
-every version shares; "new" is the checkout's ``csrc/hash_probe.cu``
-through its wrapper. Both are held against the plain version bit for bit
-on every case, and on every edge case of ``tests/hash_probe_cases.py``
-and ``tests/kvs_commit_cases.py``. Each turn reports device µs by
+every version shares (the GET walk through ``orca_probe`` and
+``orca_fetch``); "new" is the checkout's ``csrc/hash_probe.cu`` through
+its wrapper. Both are held against the plain version bit for bit on
+every case, and on every edge case of ``tests/hash_probe_cases.py`` and
+``tests/kvs_commit_cases.py``. Each turn reports device µs by
 ``torch.profiler`` (L2-warm), by CUDA events around calls queued behind a
 spin kernel, and with L2 flushed; the report adds the medians of both
 turns, the launch floor, the card's name and power limit (``nvidia-smi``),
@@ -42,6 +47,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[1]
 T0 = time.perf_counter()
@@ -51,6 +57,7 @@ CTA_SIZES = (32, 64, 128)  # and the checkout's 256
 COMMIT_CTA_SIZES = (32, 64, 128, 256)  # beside the checkout's own sizes
 LOOKUPS = ("probe", "cache_probe")
 COMMITS = ("commit_buckets", "write_rows")
+GETS = ("get",)
 
 
 class OutOfHostMemory(RuntimeError):
@@ -93,16 +100,19 @@ def build_libs(build, sources: dict):
         lib.orca_cache_probe.argtypes = [P] * 8 + [LL, LL, I, I, I, P]
         lib.orca_commit_buckets.argtypes = [P] * 6 + [LL, LL, I, I, P]
         lib.orca_write_rows.argtypes = [P] * 3 + [LL, LL, I, P]
+        lib.orca_fetch.argtypes = [P] * 3 + [LL, LL, I, P]
         for entry in ("orca_probe", "orca_cache_probe",
-                      "orca_commit_buckets", "orca_write_rows"):
+                      "orca_commit_buckets", "orca_write_rows",
+                      "orca_fetch"):
             getattr(lib, entry).restype = ctypes.c_int
         libs[name] = (lib, out)
     return libs
 
 
-def lib_entries(torch, lib, what):
+def lib_entries(torch, lib, what, cs):
     """The lookups and commits of a built library, called as the wrappers
-    call the checkout's."""
+    call the checkout's, and the GET walk composed of its probe and
+    fetch."""
     def check(code):
         if code:
             raise RuntimeError(f"{what} hash_probe: CUDA error {code}")
@@ -145,14 +155,35 @@ def lib_entries(torch, lib, what):
             torch.cuda.current_stream().cuda_stream))
         return pool
 
+    def fetch(pool, ptr):
+        out = torch.empty((ptr.shape[0], pool.shape[1]), dtype=torch.int32,
+                          device=ptr.device)
+        check(lib.orca_fetch(
+            pool.data_ptr(), ptr.data_ptr(), out.data_ptr(), ptr.shape[0],
+            pool.shape[0], pool.shape[1],
+            torch.cuda.current_stream().cuda_stream))
+        return out
+
+    halves = SimpleNamespace(probe=probe, fetch=fetch)
+
+    def get(bucket_keys, bucket_ptr, pool, keys, h1, h2):
+        return cs.composed_get(torch, halves, bucket_keys, bucket_ptr, pool,
+                               keys, h1, h2)
+
     return {"probe": probe, "cache_probe": cache_probe,
-            "commit_buckets": commit_buckets, "write_rows": write_rows}
+            "commit_buckets": commit_buckets, "write_rows": write_rows,
+            "get": get}
 
 
 def timings(torch, cs, fn):
     return {"device_us": cs.device_us(torch, fn)[0],
             "device_events_us": cs.queued_us(torch, fn),
             "device_cold_us": cs.cold_device_us(torch, fn)}
+
+
+def launches_per_call(torch, cs, fn):
+    """Device launches a call of ``fn``, by the profiler."""
+    return sum(n for _, n in cs.device_us(torch, fn)[1].values())
 
 
 def _take(torch, idx, mask, n):
@@ -325,6 +356,61 @@ def lookup_report(torch, cs, kv, ref, fns, state, cfg, report, bad):
     report["breakdown"] = breakdown
 
 
+def get_report(torch, cs, kv, ref, fns, state, cfg, report, bad):
+    """The GET walk, old (five calls) against new (one), in turns, on
+    chip_smoke's lookup inputs at B = 1, 256 and 65,536, into
+    ``report``."""
+    seeds = {1: cs.SEED + 3, cs.BATCH: cs.SEED + 1, cs.FILL_BATCH: cs.SEED + 2}
+    tables = (state.bucket_keys, state.bucket_ptr, state.pool)
+    for b, seed in seeds.items():
+        progress(f"get@{b}")
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        keys, h1, h2, _, _ = cs.kvs_lookups(torch, kv, state, b, g)
+        args = (*tables, keys, h1, h2)
+        want = ref.hash_get(*args)
+        miss = {k: sum(cs.mismatches(torch, a, w)
+                       for a, w in zip(fns[k]["get"](*args), want))
+                for k in ("old", "new")}
+        bad += [f"get@{b} {k}" for k, n in miss.items() if n]
+        turns = [{"build": k, **timings(
+            torch, cs, lambda k=k: fns[k]["get"](*args))} for k in TURNS]
+        found = int(want[1].sum())
+        nbytes = cs.get_walk_bytes(cfg, b, found)
+        out = {"batch": b, "mismatches": miss, "turns": turns,
+               "found": found, "bytes": nbytes,
+               "bound_us": nbytes / cs.HBM_BYTES_PER_S * 1e6,
+               "device_launches": {k: launches_per_call(
+                   torch, cs, lambda k=k: fns[k]["get"](*args))
+                   for k in ("old", "new")}}
+        for k in ("old", "new"):
+            out[k] = _medians(turns, k)
+        report["cases"][f"get@{b}"] = out
+
+
+def get_edge_cases(torch, fns):
+    """Mismatching elements of each build's GET walk against the plain
+    version on every case of ``tests/hash_probe_cases.py``'s GET walk, at
+    every shape and at B = 1, 37 and 4,099."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import hash_probe_cases as hpc
+
+    from chip_smoke import mismatches
+
+    miss = dict.fromkeys(fns, 0)
+    for b in (1, 37, 4099):
+        for case in hpc.GET_CASES:
+            for nb, w, kw, np_, vw in hpc.GET_SHAPES:
+                c = hpc.get_case(case, seed=nb + b, nb=nb, w=w, kw=kw,
+                                 np_=np_, vw=vw, b=b)
+                want = hpc.plain_get(**hpc.to_torch(c, "cuda"))
+                for k, f in fns.items():
+                    got = f["get"](**hpc.to_torch(c, "cuda"))
+                    miss[k] += sum(mismatches(torch, x, y)
+                                   for x, y in zip(got, want))
+    torch.cuda.synchronize()
+    return miss
+
+
 def commit_cases(torch, cs, kv, cfg, state):
     """The commits' cases, {name: (keys, vals, plan, batch)}: (a) the
     kernel phase's PUT batch, (b) the serve mix, (c) one live entry (a
@@ -490,13 +576,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old_source")
-    ap.add_argument("--kernels", default=",".join(LOOKUPS + COMMITS))
+    ap.add_argument("--kernels", default=",".join(LOOKUPS + COMMITS + GETS))
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("hash_probe_ab: no CUDA device", file=sys.stderr)
         return 2
     kernels = a.kernels.split(",")
-    unknown = set(kernels) - set(LOOKUPS + COMMITS)
+    unknown = set(kernels) - set(LOOKUPS + COMMITS + GETS)
     if unknown:
         ap.error(f"unknown kernels: {sorted(unknown)}")
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
@@ -513,6 +599,7 @@ def main() -> int:
     src = _build.CSRC / "hash_probe.cu"
     lookups = [k for k in LOOKUPS if k in kernels]
     commits = [k for k in COMMITS if k in kernels]
+    gets = [k for k in GETS if k in kernels]
     sources = {"old": (Path(a.old_source).resolve(), ())}
     if lookups:
         sources.update({f"t{n}": (src, (f"-DORCA_PROBE_THREADS={n}",))
@@ -522,10 +609,11 @@ def main() -> int:
                         for n in COMMIT_CTA_SIZES})
     libs = build_libs(_build, sources)
     _build.build(["hash_probe"])
-    fns = {k: lib_entries(torch, lib, k) for k, (lib, _) in libs.items()}
+    fns = {k: lib_entries(torch, lib, k, cs)
+           for k, (lib, _) in libs.items()}
     fns["new"] = {"probe": hp.probe, "cache_probe": hp.cache_probe,
                   "commit_buckets": hp.commit_buckets,
-                  "write_rows": hp.write_rows}
+                  "write_rows": hp.write_rows, "get": hp.get}
     with contextlib.redirect_stdout(sys.stderr):  # the load phase's line
         cfg, state, _, _ = cs.phase_load(torch, kv, hp)
     x = torch.zeros((1,), dtype=torch.float32, device="cuda")
@@ -542,6 +630,8 @@ def main() -> int:
             lookup_report(torch, cs, kv, ref, fns, state, cfg, report, bad)
         if commits:
             commit_report(torch, cs, kv, ref, fns, state, cfg, report, bad)
+        if gets:
+            get_report(torch, cs, kv, ref, fns, state, cfg, report, bad)
     except OutOfHostMemory as e:  # what was measured, then fail
         report["out_of_host_memory"] = str(e)
         print(json.dumps(report), flush=True)
@@ -554,6 +644,10 @@ def main() -> int:
         report["edge_case_mismatches"] = edge_cases(torch, builds)
         bad += [f"edge cases {k}" for k, n in
                 report["edge_case_mismatches"].items() if n]
+    if gets:
+        report["get_edge_case_mismatches"] = get_edge_cases(torch, builds)
+        bad += [f"get edge cases {k}" for k, n in
+                report["get_edge_case_mismatches"].items() if n]
     if commits:
         report["commit_edge_case_mismatches"] = commit_edge_cases(
             torch, {**builds, "c32": fns["c32"]})

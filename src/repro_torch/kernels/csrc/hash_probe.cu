@@ -1,6 +1,7 @@
-// Hash-table kernels of ORCA-KV for Hopper (sm_90a): the GET walk (probe,
-// fetch), the hot-set cache probe, and the two scatter passes of a PUT
-// commit (commit_buckets, write_rows).
+// Hash-table kernels of ORCA-KV for Hopper (sm_90a): the GET walk
+// (get_walk, one launch; and its two halves, probe and fetch), the hot-set
+// cache probe, and the two scatter passes of a PUT commit (commit_buckets,
+// write_rows).
 //
 // Layout: every array is int32 and row-major, in the sentinel-resident
 // KVState layout of repro_torch.core.kvstore — the last row of
@@ -78,7 +79,8 @@
 // takes 2.2 µs).
 //
 // fetch is still the first simple kernel: one thread per word, coalesced
-// where the layout allows.
+// where the layout allows. The GET walk no longer launches it: get_walk
+// fetches the row in probe's launch, from the lanes that resolved it.
 //
 // Each C entry point launches one kernel on the caller's stream (a
 // cudaStream_t passed as void*), does not synchronise, and returns
@@ -141,8 +143,9 @@ __device__ __forceinline__ int group_max(int v, int half) {
 // each lane loads its bucket's id and the query; round 2: its way's key
 // words and pointer, both buckets' loads in flight together. Reduction:
 // log2(L) xor-shuffles give each bucket's max matching pointer (-1 for
-// none) in all of its lanes, one more (xor L) brings the other bucket's
-// to lane 0 of the group, which stores found and ptr.
+// none) in all of its lanes, one more (xor L) the other bucket's, so every
+// lane of the group resolves the request's pointer with a select (h1's
+// max if it matched, else h2's); lane 0 of the group stores found and ptr.
 //
 // At the serve shape (W = 8, KW = 2, the kWays/kKW instance) a group is
 // 16 lanes, two requests a warp: lane l makes one 8-byte load of way
@@ -158,20 +161,25 @@ __host__ __device__ constexpr int ilog2(int n) {
   return n > 1 ? 1 + ilog2(n >> 1) : 0;
 }
 
+// A lane's request, its lane in the request's group, and the request's
+// resolved pointer (-1 for a miss), the same in every lane of the group.
+struct Resolved {
+  unsigned i;
+  int gl;
+  int r;
+};
+
+// The lookup of probe and get_walk, lane map above. Every lane of the
+// warp calls it: the reduction shuffles over the whole warp.
 template <int kWays, int kKW>
-__global__ void probe_kernel(const int32_t* __restrict__ bucket_keys,
-                             const int32_t* __restrict__ bucket_ptr,
-                             const int32_t* __restrict__ keys,
-                             const int32_t* __restrict__ h1,
-                             const int32_t* __restrict__ h2,
-                             bool* __restrict__ found,
-                             int32_t* __restrict__ ptr, unsigned batch,
-                             int64_t rows, int ways, int key_words,
-                             int half_shift) {
+__device__ __forceinline__ Resolved probe_group(
+    const int32_t* __restrict__ bucket_keys,
+    const int32_t* __restrict__ bucket_ptr, const int32_t* __restrict__ keys,
+    const int32_t* __restrict__ h1, const int32_t* __restrict__ h2,
+    unsigned batch, int64_t rows, int ways, int key_words, int half_shift) {
   static_assert(kWays == 0 || (kKW == 2 && kWays <= 16 &&
                                (kWays & (kWays - 1)) == 0),
                 "the serve lane map: a lane a way, 8-byte key loads");
-  if constexpr (kWays > 0) half_shift = ilog2(kWays);
   const int half = 1 << half_shift;  // L
   const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned i = t >> (half_shift + 1);
@@ -205,10 +213,83 @@ __global__ void probe_kernel(const int32_t* __restrict__ bucket_keys,
   }
   best = group_max(best, half >> 1);
   const int other = __shfl_xor_sync(kFullMask, best, half);
-  if (gl == 0 && i < batch) {  // lane 0 holds h1's max, `other` h2's
-    const int r = best >= 0 ? best : other;
-    found[i] = r >= 0;
-    ptr[i] = r >= 0 ? r : 0;
+  const int p1 = gl < half ? best : other;  // h1's max in every lane
+  const int p2 = gl < half ? other : best;  // h2's
+  return {i, gl, p1 >= 0 ? p1 : p2};
+}
+
+template <int kWays, int kKW>
+__global__ void probe_kernel(const int32_t* __restrict__ bucket_keys,
+                             const int32_t* __restrict__ bucket_ptr,
+                             const int32_t* __restrict__ keys,
+                             const int32_t* __restrict__ h1,
+                             const int32_t* __restrict__ h2,
+                             bool* __restrict__ found,
+                             int32_t* __restrict__ ptr, unsigned batch,
+                             int64_t rows, int ways, int key_words,
+                             int half_shift) {
+  if constexpr (kWays > 0) half_shift = ilog2(kWays);
+  const Resolved g = probe_group<kWays, kKW>(
+      bucket_keys, bucket_ptr, keys, h1, h2, batch, rows, ways, key_words,
+      half_shift);
+  if (g.gl == 0 && g.i < batch) {
+    found[g.i] = g.r >= 0;
+    ptr[g.i] = g.r >= 0 ? g.r : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// get_walk — replaces repro/kernels/hash_probe.py::get: probe, then fetch
+// at the pointers clamped to [0, NP], misses zeroed; one launch a GET walk.
+// What held the walk back was not its bytes but its launches: probe wrote
+// found and ptr, two glue ops clamped and masked them, fetch read ptr
+// back and gathered, a last op zeroed the misses: five calls, seven device
+// operations by the profiler, each at least a launch floor. Here the
+// group that resolved a request's pointer fetches its row: after probe's
+// lane map (probe_group) every lane of the group holds the pointer, so
+// lane l copies words l, l + 2L, ... of pool row min(r, NP) on a hit (a
+// found pointer past NP reads row NP, as the clamp does) and stores zeros
+// on a miss, reading nothing; lane 0 stores found. One dependent round
+// trip more than probe, on hits only, and no pointer through global
+// memory.
+//
+// At the serve shape (W = 8, KW = 2, VW = 16, the kWays/kKW/kVW
+// instance; keys and bucket_keys 8-byte aligned) lane l of the 16-lane
+// group reads word l: a 64-byte row, coalesced, in one load a lane. Other
+// shapes run the run-time instance, whose lanes loop over the row in
+// strides of 2L.
+// Bytes per request: probe's reads, found and VW * 4 written, VW * 4 read
+// where found — 337 B at the serve widths on a hit, 273 on a miss.
+// ---------------------------------------------------------------------------
+template <int kWays, int kKW, int kVW>
+__global__ void get_walk_kernel(const int32_t* __restrict__ bucket_keys,
+                                const int32_t* __restrict__ bucket_ptr,
+                                const int32_t* __restrict__ pool,
+                                const int32_t* __restrict__ keys,
+                                const int32_t* __restrict__ h1,
+                                const int32_t* __restrict__ h2,
+                                int32_t* __restrict__ vals,
+                                bool* __restrict__ found, unsigned batch,
+                                int64_t rows, int64_t np_row, int ways,
+                                int key_words, int val_words,
+                                int half_shift) {
+  static_assert(kVW == 0 || kVW == 2 * kWays,
+                "the serve lane map: a lane a value word");
+  if constexpr (kWays > 0) half_shift = ilog2(kWays);
+  if constexpr (kVW > 0) val_words = kVW;
+  const Resolved g = probe_group<kWays, kKW>(
+      bucket_keys, bucket_ptr, keys, h1, h2, batch, rows, ways, key_words,
+      half_shift);
+  if (g.i >= batch) return;
+  if (g.gl == 0) found[g.i] = g.r >= 0;
+  const int group = 2 << half_shift;
+  int32_t* out = vals + int64_t(g.i) * val_words;
+  if (g.r >= 0) {
+    const int64_t at = g.r < np_row ? g.r : np_row;  // the clamp to NP
+    const int32_t* row = pool + at * val_words;
+    for (int j = g.gl; j < val_words; j += group) out[j] = __ldg(row + j);
+  } else {
+    for (int j = g.gl; j < val_words; j += group) out[j] = 0;
   }
 }
 
@@ -475,6 +556,17 @@ bool aligned(const void* p, unsigned bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// log2 of L, the lanes a bucket of a probe or get_walk request
+int lookup_half_shift(int ways) {
+  int half_shift = 0;
+  while ((1 << half_shift) < ways && half_shift < 4) ++half_shift;
+  return half_shift;
+}
+
+unsigned lookup_blocks(long long lanes) {
+  return unsigned((lanes + kLookupThreads - 1) / kLookupThreads);
+}
+
 }  // namespace
 
 extern "C" {
@@ -490,21 +582,42 @@ int orca_probe(const void* bucket_keys, const void* bucket_ptr,
   if (batch <= 0) return 0;
   if (batch > kMaxBatch || ways <= 0 || key_words <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int half_shift = 0;  // L = 1 << half_shift lanes a bucket
-  while ((1 << half_shift) < ways && half_shift < 4) ++half_shift;
-  const long long lanes = batch << (half_shift + 1);
-  const unsigned blocks =
-      unsigned((lanes + kLookupThreads - 1) / kLookupThreads);
+  const int half_shift = lookup_half_shift(ways);
   const bool serve = ways == 8 && key_words == 2 &&
                      aligned(bucket_keys, 8) && aligned(keys, 8);
   auto kernel = serve ? probe_kernel<8, 2> : probe_kernel<0, 0>;
-  kernel<<<blocks, kLookupThreads, 0,
+  kernel<<<lookup_blocks(batch << (half_shift + 1)), kLookupThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(bucket_keys),
       static_cast<const int32_t*>(bucket_ptr),
       static_cast<const int32_t*>(keys), static_cast<const int32_t*>(h1),
       static_cast<const int32_t*>(h2), static_cast<bool*>(found),
       static_cast<int32_t*>(ptr), unsigned(batch), rows, ways, key_words,
+      half_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int orca_get(const void* bucket_keys, const void* bucket_ptr,
+             const void* pool, const void* keys, const void* h1,
+             const void* h2, void* vals, void* found, long long batch,
+             long long rows, long long pool_rows, int ways, int key_words,
+             int val_words, void* stream) {
+  if (batch <= 0) return 0;
+  if (batch > kMaxBatch || pool_rows <= 0 || ways <= 0 || key_words <= 0 ||
+      val_words <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int half_shift = lookup_half_shift(ways);
+  const bool serve = ways == 8 && key_words == 2 && val_words == 16 &&
+                     aligned(bucket_keys, 8) && aligned(keys, 8);
+  auto kernel = serve ? get_walk_kernel<8, 2, 16> : get_walk_kernel<0, 0, 0>;
+  kernel<<<lookup_blocks(batch << (half_shift + 1)), kLookupThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(bucket_keys),
+      static_cast<const int32_t*>(bucket_ptr),
+      static_cast<const int32_t*>(pool), static_cast<const int32_t*>(keys),
+      static_cast<const int32_t*>(h1), static_cast<const int32_t*>(h2),
+      static_cast<int32_t*>(vals), static_cast<bool*>(found),
+      unsigned(batch), rows, pool_rows - 1, ways, key_words, val_words,
       half_shift);
   return static_cast<int>(cudaGetLastError());
 }
@@ -530,12 +643,9 @@ int orca_cache_probe(const void* cache_keys, const void* cache_vals,
   const bool serve = ways == 4 && key_words == 2 && val_words == 16 &&
                      aligned(cache_keys, 8) && aligned(keys, 8) &&
                      aligned(cache_vals, 16) && aligned(vals, 16);
-  const long long lanes = batch << (serve ? 4 : 5);
-  const unsigned blocks =
-      unsigned((lanes + kLookupThreads - 1) / kLookupThreads);
   auto kernel = serve ? cache_probe_kernel<4, 2, 16>
                       : cache_probe_kernel<0, 0, 0>;
-  kernel<<<blocks, kLookupThreads, 0,
+  kernel<<<lookup_blocks(batch << (serve ? 4 : 5)), kLookupThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cache_keys),
       static_cast<const int32_t*>(cache_vals),

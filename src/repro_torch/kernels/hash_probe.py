@@ -5,15 +5,18 @@ GET (primary bucket, overflow bucket, value row) and four per PUT:
 
   ``probe``          buckets in, found flag + pool pointer out
   ``fetch``          value rows gathered at the resolved pointers
+  ``get_walk``       both in one launch: the GET walk of the main path
   ``cache_probe``    hot-set cache set lookup (before the bucket walk)
   ``commit_buckets`` PUT scatter pass 1: the chosen way of each bucket
   ``write_rows``     PUT scatter pass 2: value rows into the pool
 
-``get`` composes probe and fetch, ``insert`` the two scatter passes. The
-wrappers follow ``_launch`` (CUDA tensors only, checked, launched on the
-current stream); the commit wrappers update the state arrays IN PLACE,
-like the TPU kernels' ``input_output_aliases``. ``launches`` counts each
-kernel's launches since the last :func:`reset_launches`.
+``get`` launches ``get_walk``, ``insert`` the two scatter passes;
+``probe`` alone is the PUT plan's existence check, and ``fetch``, the
+port of its own TPU kernel, runs on no main path. The wrappers follow
+``_launch`` (CUDA tensors only, checked, launched on the current stream);
+the commit wrappers update the state arrays IN PLACE, like the TPU
+kernels' ``input_output_aliases``. ``launches`` counts each kernel's
+launches since the last :func:`reset_launches`.
 """
 from __future__ import annotations
 
@@ -23,10 +26,12 @@ from repro_torch.kernels._launch import LL, I, P, Library, check as _check
 from repro_torch.kernels._launch import same as _same
 
 I32 = torch.int32
-KERNELS = ("probe", "fetch", "cache_probe", "commit_buckets", "write_rows")
+KERNELS = ("probe", "fetch", "get_walk", "cache_probe", "commit_buckets",
+           "write_rows")
 _lib = Library("hash_probe", KERNELS, {
     "orca_probe": [P] * 7 + [LL, LL, I, I],
     "orca_fetch": [P] * 3 + [LL, LL, I],
+    "orca_get": [P] * 8 + [LL, LL, LL, I, I, I],
     "orca_cache_probe": [P] * 8 + [LL, LL, I, I, I],
     "orca_commit_buckets": [P] * 6 + [LL, LL, I, I],
     "orca_write_rows": [P] * 3 + [LL, LL, I],
@@ -144,13 +149,30 @@ def write_rows(pool, vals, wp):
 
 
 def get(bucket_keys, bucket_ptr, pool, keys, h1, h2):
-    """Full GET walk: probe, then fetch. Returns (vals (B, VW), found (B,)).
-    Misses fetch the pool's resident zero sentinel row, never a live row."""
-    found, ptr = probe(bucket_keys, bucket_ptr, keys, h1, h2)
-    np_ = pool.shape[0] - 1
-    ptr_safe = torch.where(found, torch.clamp(ptr, 0, np_), np_).to(I32)
-    vals = fetch(pool, ptr_safe)
-    return torch.where(found[:, None], vals, 0), found
+    """Full GET walk in one launch (``get_walk``): probe, then the pool row
+    at the resolved pointer clamped to NP. Returns (vals (B, VW), found
+    (B,)); misses are zero and read no row. Ids outside [0, NB] match
+    nothing."""
+    dev = keys.device
+    _check("keys", keys, 2, dev)
+    b, kw = keys.shape
+    _check("bucket_keys", bucket_keys, 3, dev)
+    rows, w = bucket_keys.shape[:2]
+    _same("bucket_keys", bucket_keys.shape, (rows, w, kw))
+    _check("bucket_ptr", bucket_ptr, 2, dev)
+    _same("bucket_ptr", bucket_ptr.shape, (rows, w))
+    _check("pool", pool, 2, dev)
+    for name, t in (("h1", h1), ("h2", h2)):
+        _check(name, t, 1, dev)
+        _same(name, t.shape, (b,))
+    pool_rows, vw = pool.shape
+    vals = torch.empty((b, vw), dtype=I32, device=dev)
+    found = torch.empty((b,), dtype=torch.bool, device=dev)
+    _launch("get_walk", "orca_get", dev, bucket_keys.data_ptr(),
+            bucket_ptr.data_ptr(), pool.data_ptr(), keys.data_ptr(),
+            h1.data_ptr(), h2.data_ptr(), vals.data_ptr(), found.data_ptr(),
+            b, rows, pool_rows, w, kw, vw)
+    return vals, found
 
 
 def insert(bucket_keys, bucket_ptr, pool, keys, vals, tb, tw, bptr_val, wp):

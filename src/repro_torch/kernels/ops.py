@@ -55,7 +55,8 @@ def cache_probe(cache_keys, cache_vals, cache_meta, keys, cset, *,
 
 
 def hash_get(bucket_keys, bucket_ptr, pool, keys, h1, h2, *, backend="auto"):
-    """GET walk: probe + fetch. Returns (vals (B, VW), found (B,))."""
+    """GET walk: probe + fetch, one ``get_walk`` launch on CUDA tensors.
+    Returns (vals (B, VW), found (B,))."""
     if resolve_backend(backend, keys.device):
         return _ref.hash_get(bucket_keys, bucket_ptr, pool, keys, h1, h2)
     return _hp.get(bucket_keys, bucket_ptr, pool, keys, h1, h2)

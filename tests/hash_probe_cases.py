@@ -22,6 +22,17 @@ layout (the last bucket row and cache set all zero). ``probe_case``:
   they match nothing and read nothing;
 - ``all_miss`` / ``all_hit``: no query / every query held by a live way.
 
+``get_case`` adds a pool (NP + 1, VW) to a probe case, its live
+pointers mapped into [0, NP) in order (the larger pointer still wins),
+and three cases of the GET walk:
+
+- ``overflow_only``: every query held only by its h2 bucket;
+- ``retargeted``: about half the rows aimed at the sentinel bucket (h1 =
+  h2 = NB), as ``kvstore.get`` aims its cache hits;
+- ``ptr_above_np``: pointers up to 2 NP, so about half the hits point
+  at or past the sentinel row, which is not zero here: a found pointer
+  reads row min(ptr, NP).
+
 ``cache_case`` has the same shapes of case for a set-associative cache,
 keys distinct within a set except in ``max_way`` (two live ways hold the
 key: the larger way wins) and ``meta_zero`` (a way with meta 0 holds the
@@ -48,9 +59,14 @@ CACHE_PALLAS = tuple(c for c in CACHE_CASES
 # (num_buckets, ways, key_words, pool_size, val_words): the card tests'
 # shapes (ways > 32 included, so a warp loops)
 SHAPES = [(8, 2, 2, 24, 4), (32, 4, 2, 64, 16), (64, 40, 3, 300, 33)]
+GET_CASES = PROBE_CASES + ("overflow_only", "retargeted", "ptr_above_np")
+GET_IN_RANGE = tuple(c for c in GET_CASES if c != "out_of_range")
 # the lookups' shapes: the serve widths (kvstore's in chip_smoke.py: 8
 # ways, 4 cache ways, 2 key words, 16 value words) on 16 rows, then SHAPES
 PROBE_SHAPES = [(16, 8, 2)] + [(n, w, kw) for n, w, kw, _, _ in SHAPES]
+# the GET walk's: the serve widths (8 ways, 2 key words, 16 value words)
+# on 16 buckets, then SHAPES
+GET_SHAPES = [(16, 8, 2, 1000, 16)] + SHAPES
 CACHE_SHAPES = [(16, 4, 2, 16)] + [(n, w, kw, vw)
                                    for n, w, kw, _, vw in SHAPES]
 OUT_OF_RANGE = np.array([-1, -7, 2**31 - 1, -2**31], np.int64)
@@ -141,6 +157,38 @@ def probe_case(name: str, seed: int, nb: int, w: int, kw: int,
             "h2": h2}
 
 
+def get_case(name: str, seed: int, nb: int, w: int, kw: int, np_: int,
+             vw: int, b: int) -> dict:
+    """``probe_case``'s arrays for case ``name`` (a probe case, or one of
+    the GET walk's own) and a pool (np_ + 1, vw), row np_ the sentinel:
+    zero, except in ``ptr_above_np``."""
+    base = {"overflow_only": "all_miss", "retargeted": "random",
+            "ptr_above_np": "all_hit"}.get(name, name)
+    c = probe_case(base, seed, nb, w, kw, b)
+    rng = np.random.default_rng(seed + 1)
+    bk, bp = c["bucket_keys"], c["bucket_ptr"]
+    if name == "overflow_only":
+        rows = np.arange(nb)
+        nxt = (rows + 1) % nb
+        own = _own_keys(nb, kw)
+        bk[nxt, w - 1], bp[nxt, w - 1] = own, rng.integers(0, 1000, nb)
+        u = np.arange(b) % nb
+        c.update(keys=own[u], h1=_i32(u), h2=_i32(nxt[u]))
+    elif name == "retargeted":
+        aim = rng.random(b) < 0.5
+        c["h1"] = _i32(np.where(aim, nb, c["h1"]))
+        c["h2"] = _i32(np.where(aim, nb, c["h2"]))
+    span = 2 * np_ if name == "ptr_above_np" else np_
+    live = bp[:nb] >= 0  # probe_case's pointers lie in [0, 1000)
+    bp[:nb] = np.where(live, bp[:nb].astype(np.int64) * span // 1000,
+                       bp[:nb])
+    pool = _i32(rng.integers(-1000, 1000, (np_ + 1, vw)))
+    if name != "ptr_above_np":
+        pool[np_] = 0
+    c["pool"] = pool
+    return c
+
+
 def cache_case(name: str, seed: int, cs: int, cw: int, kw: int, vw: int,
                b: int) -> dict:
     """numpy int32 cache_keys (cs+1, cw, kw), cache_vals (cs+1, cw, vw),
@@ -219,6 +267,16 @@ def plain_probe(bucket_keys, bucket_ptr, keys, h1, h2):
     bp = torch.cat([bucket_ptr, torch.full_like(bucket_ptr[:1], -1)])
     return ref.hash_probe(bk, bp, keys, _in_range(h1, rows),
                           _in_range(h2, rows))
+
+
+def plain_get(bucket_keys, bucket_ptr, pool, keys, h1, h2):
+    """``ref.hash_get`` with ids outside [0, NB] matching nothing, as in
+    :func:`plain_probe`. Returns (vals, found)."""
+    rows = bucket_keys.shape[0]
+    bk = torch.cat([bucket_keys, torch.zeros_like(bucket_keys[:1])])
+    bp = torch.cat([bucket_ptr, torch.full_like(bucket_ptr[:1], -1)])
+    return ref.hash_get(bk, bp, pool, keys, _in_range(h1, rows),
+                        _in_range(h2, rows))
 
 
 def plain_cache_probe(cache_keys, cache_vals, cache_meta, keys, cset):

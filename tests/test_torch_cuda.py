@@ -133,6 +133,21 @@ def test_wrappers_reject_bad_tensors(dev):
         hp.probe(bk.cpu(), bp.cpu(), keys.cpu(), h.cpu(), h.cpu())
 
 
+def test_get_wrapper_rejects_bad_tensors(dev):
+    i32 = dict(dtype=torch.int32, device=dev)
+    bk, bp = torch.zeros((5, 2, 2), **i32), torch.zeros((5, 2), **i32)
+    pool, keys = torch.zeros((9, 4), **i32), torch.zeros((3, 2), **i32)
+    h = torch.zeros((3,), **i32)
+    with pytest.raises(TypeError, match="dtype"):
+        hp.get(bk, bp, pool.to(torch.int64), keys, h, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        hp.get(bk, bp, torch.zeros((4, 9), **i32).t(), keys, h, h)
+    with pytest.raises(ValueError, match="shape"):
+        hp.get(bk, torch.zeros((5, 3), **i32), pool, keys, h, h)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        hp.get(bk, bp, pool.cpu(), keys, h, h)
+
+
 @pytest.mark.parametrize("b", LOOKUP_BATCHES)
 @pytest.mark.parametrize("shape", hpc.PROBE_SHAPES)
 @pytest.mark.parametrize("case", hpc.PROBE_CASES)
@@ -161,6 +176,36 @@ def test_cache_probe_edge_cases_match_plain_version(dev, case, shape, b):
           f"cache_probe {case}")
 
 
+@pytest.mark.parametrize("b", LOOKUP_BATCHES)
+@pytest.mark.parametrize("shape", hpc.GET_SHAPES)
+@pytest.mark.parametrize("case", hpc.GET_CASES)
+def test_get_walk_edge_cases_match_plain_version(dev, case, shape, b):
+    """Every GET walk case at both instances (the serve widths, then the
+    run-time ones): ``get_walk`` equals the plain ``hash_get``, ids out
+    of range matching nothing, a found pointer past NP reading row NP;
+    one launch a call."""
+    nb, w, kw, np_, vw = shape
+    c = hpc.get_case(case, seed=nb + b, nb=nb, w=w, kw=kw, np_=np_, vw=vw,
+                     b=b)
+    hp.reset_launches()
+    got = hp.get(**hpc.to_torch(c, dev))
+    torch.cuda.synchronize()
+    assert hp.launches == {**dict.fromkeys(hp.KERNELS, 0), "get_walk": 1}
+    _same(hpc.plain_get(**hpc.to_torch(c)), got, f"get {case}")
+
+
+@pytest.mark.parametrize("name", ["keys", "bucket_keys"])
+def test_get_walk_unaligned_arrays_take_4_byte_loads(dev, name):
+    """Keys or bucket keys off the 8-byte grid at the serve widths: the
+    run-time instance, the same answers."""
+    c = hpc.get_case("retargeted", seed=5, nb=16, w=8, kw=2, np_=1000,
+                     vw=16, b=256)
+    t = hpc.to_torch(c, dev)
+    t[name] = _unaligned(t[name])
+    _same(hpc.plain_get(**hpc.to_torch(c)), hp.get(**t),
+          f"get, {name} unaligned")
+
+
 def test_lookups_at_the_load_batch(dev):
     """65,536 requests (the load phase's batch) at the serve widths: 4,096
     CTAs of 256 threads, equal to the plain versions."""
@@ -171,6 +216,10 @@ def test_lookups_at_the_load_batch(dev):
     c = hpc.cache_case("random", seed=2, cs=4096, cw=4, kw=2, vw=16, b=b)
     _same(hpc.plain_cache_probe(**hpc.to_torch(c)),
           hp.cache_probe(**hpc.to_torch(c, dev)), "cache_probe at 65,536")
+    c = hpc.get_case("random", seed=6, nb=4096, w=8, kw=2, np_=1000, vw=16,
+                     b=b)
+    _same(hpc.plain_get(**hpc.to_torch(c)), hp.get(**hpc.to_torch(c, dev)),
+          "get at 65,536")
 
 
 def _unaligned(t):
@@ -217,6 +266,9 @@ def test_lookups_refuse_a_batch_past_their_lane_index(dev):
         hp.cache_probe(torch.zeros((5, 4, 2), **i32),
                        torch.zeros((5, 4, 16), **i32),
                        torch.zeros((5, 4), **i32), keys, ids)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hp.get(torch.zeros((5, 8, 2), **i32), torch.zeros((5, 8), **i32),
+               torch.zeros((9, 1), **i32), keys, ids, ids)
 
 
 def test_cache_probe_wrapper_rejects_bad_tensors(dev):
@@ -362,10 +414,12 @@ def test_engine_kvs_kernels_equal_plain_on_the_card(dev, cache_sets):
     (a, launches), (b, plain_launches) = runs["auto"], runs["ref"]
     for x, y in zip(_flat(a), _flat(b), strict=True):
         assert x.dtype == y.dtype and np.array_equal(x, y)
-    want = {"probe", "fetch", "commit_buckets", "write_rows"}
+    # the GET walk is one get_walk launch: fetch runs on no engine path
+    want = {"probe", "get_walk", "commit_buckets", "write_rows"}
     if cache_sets:
         want.add("cache_probe")
     assert all(launches[k] > 0 for k in want), launches
+    assert launches["fetch"] == 0, launches
     assert not any(plain_launches.values())
 
 

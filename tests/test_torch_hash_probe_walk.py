@@ -33,12 +33,17 @@ import pytest
 import torch
 
 from hash_probe_cases import CACHE_CASES, CACHE_PALLAS, CACHE_SHAPES, \
-    PROBE_CASES, PROBE_IN_RANGE, PROBE_SHAPES, cache_case, \
-    plain_cache_probe, plain_probe, probe_case, to_torch
+    GET_CASES, GET_IN_RANGE, GET_SHAPES, PROBE_CASES, PROBE_IN_RANGE, \
+    PROBE_SHAPES, cache_case, get_case, plain_cache_probe, plain_get, \
+    plain_probe, probe_case, to_torch
 from repro.kernels import hash_probe as jhp
 
 WARP, THREADS, MAX_LOOKUPS = 32, 256, 1 << 26
 BATCHES = [1, 37]
+# the GET walk's: one request, the engine's batch, a ragged multi-CTA one
+GET_BATCHES = [1, 256, 401]
+PROBE_KEYS = ("bucket_keys", "bucket_ptr", "keys", "h1", "h2")
+GET_KEYS = ("bucket_keys", "bucket_ptr", "pool", "keys", "h1", "h2")
 
 
 def probe_plan(b, w, kw, aligned=True):
@@ -51,6 +56,12 @@ def probe_plan(b, w, kw, aligned=True):
     lanes = b << (hs + 1)
     return dict(serve=w == 8 and kw == 2 and aligned, half_shift=hs,
                 threads=THREADS, blocks=-(-lanes // THREADS))
+
+
+def get_plan(b, w, kw, vw, aligned=True):
+    """``orca_get``'s choices: probe's, with the serve instance only at 16
+    value words (a lane a word of the row)."""
+    return probe_plan(b, w, kw, aligned and vw == 16)
 
 
 def cache_plan(b, cw, kw, vw, aligned=True):
@@ -78,19 +89,17 @@ def _xor_max(v, offsets):
     return v
 
 
-def model_probe(bucket_keys, bucket_ptr, keys, h1, h2, aligned=True):
-    """The probe kernel on numpy arrays. Returns (found, ptr, loads, stores,
-    plan): ``loads[i]`` lists request i's loads as (what, row, way, bytes),
-    ``stores[i]`` counts its stores of (found, ptr)."""
+def _probe_groups(bucket_keys, bucket_ptr, keys, h1, h2, plan, loads):
+    """``probe_group``, the lane map that ``probe`` and ``get_walk`` share,
+    on numpy arrays, warp by warp: yields each warp's lanes [(lane,
+    request, group lane)] and the request's pointer as each lane resolves
+    it (h1's max if it matched, else h2's; -1 for a miss), after recording
+    each request's loads in ``loads`` as (what, row, way, bytes)."""
     bk, bp = bucket_keys, bucket_ptr
     rows, w, kw = bk.shape
     b = keys.shape[0]
-    plan = probe_plan(b, w, kw, aligned)
     hs = plan["half_shift"]
     half = 1 << hs
-    found = np.zeros(b, bool)
-    ptr = np.full(b, -99, np.int32)  # not stored
-    loads, stores = defaultdict(list), Counter()
     for lanes in _lanes(plan, hs + 1):
         best = [-1] * WARP
         for lane, i, gl in lanes:
@@ -121,12 +130,70 @@ def model_probe(bucket_keys, bucket_ptr, keys, h1, h2, aligned=True):
             off >>= 1
         best = _xor_max(best, offs)
         other = [best[lane ^ half] for lane in range(WARP)]
+        resolved = []
+        for lane, _, gl in lanes:
+            p1, p2 = ((best[lane], other[lane]) if gl < half
+                      else (other[lane], best[lane]))
+            resolved.append(p1 if p1 >= 0 else p2)
+        yield lanes, resolved
+
+
+def model_probe(bucket_keys, bucket_ptr, keys, h1, h2, aligned=True):
+    """The probe kernel on numpy arrays. Returns (found, ptr, loads, stores,
+    plan): ``loads[i]`` lists request i's loads as (what, row, way, bytes),
+    ``stores[i]`` counts its stores of (found, ptr)."""
+    rows, w, kw = bucket_keys.shape
+    b = keys.shape[0]
+    plan = probe_plan(b, w, kw, aligned)
+    found = np.zeros(b, bool)
+    ptr = np.full(b, -99, np.int32)  # not stored
+    loads, stores = defaultdict(list), Counter()
+    for lanes, r in _probe_groups(bucket_keys, bucket_ptr, keys, h1, h2,
+                                  plan, loads):
         for lane, i, gl in lanes:
             if gl == 0 and i < b:
-                r = best[lane] if best[lane] >= 0 else other[lane]
-                found[i], ptr[i] = r >= 0, r if r >= 0 else 0
+                found[i], ptr[i] = r[lane] >= 0, max(r[lane], 0)
                 stores[i] += 1
     return found, ptr, loads, stores, plan
+
+
+def model_get_walk(bucket_keys, bucket_ptr, pool, keys, h1, h2,
+                   aligned=True):
+    """The get_walk kernel on numpy arrays: probe's lane map, then each
+    lane of a group copies words gl, gl + 2L, ... of pool row min(r, NP)
+    on a hit and stores zeros on a miss; lane 0 stores found. Returns
+    (vals, found, loads, stores, plan): ``loads[i]`` as in
+    :func:`model_probe` plus ("row", row, word, 4) after the reduction;
+    ``stores[i]`` counts its stores per output word (-1: found). Every
+    lane of a group must resolve the same pointer."""
+    rows, w, kw = bucket_keys.shape
+    np_row, vw = pool.shape[0] - 1, pool.shape[1]
+    b = keys.shape[0]
+    plan = get_plan(b, w, kw, vw, aligned)
+    group = 2 << plan["half_shift"]
+    found = np.zeros(b, bool)
+    vals = np.full((b, vw), -99, np.int32)  # not stored
+    loads, stores = defaultdict(list), defaultdict(Counter)
+    seen = defaultdict(set)
+    for lanes, r in _probe_groups(bucket_keys, bucket_ptr, keys, h1, h2,
+                                  plan, loads):
+        for lane, i, gl in lanes:
+            if i >= b:
+                continue
+            seen[i].add(r[lane])
+            if gl == 0:
+                found[i] = r[lane] >= 0
+                stores[i][-1] += 1
+            at = min(r[lane], np_row)
+            for j in range(gl, vw, group):
+                if r[lane] >= 0:
+                    vals[i, j] = pool[at, j]
+                    loads[i].append(("row", at, j, 4))
+                else:
+                    vals[i, j] = 0
+                stores[i][j] += 1
+    assert all(len(v) == 1 for v in seen.values()), "a group disagrees"
+    return vals, found, loads, stores, plan
 
 
 def model_cache_probe(cache_keys, cache_vals, cache_meta, keys, cset,
@@ -374,6 +441,83 @@ def test_cache_probe_model_serve_widths_both_instances(aligned):
     assert int(hit.sum()) > 0 and not hit.all()
 
 
+def _check_get_loads(c, loads, stores, plan, b, found):
+    """probe's loads and one found store a request; then each output word
+    stored once, and VW row loads, one a word, of row min(ptr, NP) on a
+    hit, none on a miss."""
+    _check_probe_loads(c, loads, Counter({i: stores[i][-1]
+                                          for i in range(b)}), plan, b)
+    np_row, vw = c["pool"].shape[0] - 1, c["pool"].shape[1]
+    ptr = plain_probe(**to_torch({k: c[k] for k in PROBE_KEYS}))[1].numpy()
+    for i in range(b):
+        assert stores[i] == Counter({j: 1 for j in range(-1, vw)})
+        row = sorted((r, j) for what, r, j, n in loads[i] if what == "row")
+        assert row == ([(min(int(ptr[i]), np_row), j) for j in range(vw)]
+                       if found[i] else [])
+
+
+def _get_against_plain_and_pallas(c, case, b, aligned=True):
+    """The model's vals and found against the plain version's (ids out of
+    range matching nothing) and, where every id is in range, the Pallas
+    ``get``'s; its loads and stores against the lane map. Returns the
+    model's plan and found."""
+    vals, found, loads, stores, plan = model_get_walk(
+        *(c[k] for k in GET_KEYS), aligned=aligned)
+    want = plain_get(**to_torch({k: c[k] for k in GET_KEYS}))
+    np.testing.assert_array_equal(vals, want[0].numpy())
+    np.testing.assert_array_equal(found, want[1].numpy())
+    if case in GET_IN_RANGE:
+        pv, pf = jhp.get(*(jnp.asarray(c[k]) for k in GET_KEYS),
+                         interpret=True)
+        np.testing.assert_array_equal(vals, np.asarray(pv))
+        np.testing.assert_array_equal(found, np.asarray(pf))
+    _check_get_loads(c, loads, stores, plan, b, found)
+    return plan, found
+
+
+def test_get_walk_launch_plans_at_the_main_path_batches():
+    """orca_get launches as orca_probe does (16 lanes a request at the
+    serve widths: 16 CTAs at the engine's batch, 4,096 at 65,536), and
+    takes the serve instance only at 16 value words with aligned keys."""
+    assert get_plan(256, 8, 2, 16) == probe_plan(256, 8, 2)
+    assert get_plan(65536, 8, 2, 16)["blocks"] == 4096
+    assert not get_plan(256, 8, 2, 8)["serve"]
+    assert not get_plan(256, 8, 2, 16, aligned=False)["serve"]
+    assert get_plan(401, 40, 3, 33) == dict(serve=False, half_shift=4,
+                                            threads=256, blocks=51)
+
+
+@pytest.mark.parametrize("b", GET_BATCHES)
+@pytest.mark.parametrize("shape", GET_SHAPES)
+@pytest.mark.parametrize("case", GET_CASES)
+def test_get_walk_model_matches_plain_and_pallas(case, shape, b):
+    """Every case at both instances (the serve widths, then the run-time
+    ones): the model's vals and found equal the plain ``hash_get``'s and
+    the Pallas ``get``'s bit for bit; rows are read on hits only, at
+    min(ptr, NP), and every output word is stored once."""
+    nb, w, kw, np_, vw = shape
+    c = get_case(case, seed=nb * 10 + b, nb=nb, w=w, kw=kw, np_=np_, vw=vw,
+                 b=b)
+    plan, found = _get_against_plain_and_pallas(c, case, b)
+    assert plan["serve"] == (shape == GET_SHAPES[0])
+    if case in ("all_miss", "out_of_range") or b == 1:
+        return
+    assert found.any()
+    if case == "ptr_above_np":  # some hits read the sentinel row
+        ptr = plain_probe(**to_torch({k: c[k] for k in PROBE_KEYS}))[1]
+        assert bool((found & (ptr.numpy() >= np_)).any())
+
+
+@pytest.mark.parametrize("case", ["random", "retargeted", "ptr_above_np"])
+def test_get_walk_model_unaligned_keys_take_the_run_time_instance(case):
+    """Keys that start 4-byte but not 8-byte aligned at the serve widths:
+    the run-time instance (4-byte loads, a lane a word of the row), the
+    same answers."""
+    c = get_case(case, seed=3, nb=16, w=8, kw=2, np_=1000, vw=16, b=256)
+    plan, _ = _get_against_plain_and_pallas(c, case, 256, aligned=False)
+    assert not plan["serve"]
+
+
 def test_pallas_cache_kernel_sums_two_matching_ways():
     """Why ``max_way`` is held against the plain version only: the Pallas
     kernel returns the sum of the matching ways' lines (kvstore admits a
@@ -426,6 +570,33 @@ def test_chip_smoke_names_kernels_under_any_namespace_hash():
         == "cache_probe_kernel<0,0,0>"
     assert cs.kernel_name(ns + "18cache_probe_kernelEPKiS2_") == \
         "cache_probe_kernel"
+    assert cs.kernel_name(ns + "15get_walk_kernelILi8ELi2ELi16EEEvPKiS2_") \
+        == "get_walk_kernel<8,2,16>"
     assert cs.kernel_name("_ZN12_GLOBAL__N_118flash_wgmma_kernelI13__nv_"
                           "bfloat16Li128EEEvPKS1_") == \
         "flash_wgmma_kernel<bf16,128>"
+
+
+def test_chip_smoke_kvs_kernels_name_their_tpu_functions():
+    """``chip_smoke.py`` lists every hash kernel of the port, each beside
+    the def line of the JAX function it replaces (``get_walk``: ``get``,
+    which composes the Pallas ``probe`` and ``fetch``), and splits them
+    into the engine's path and ``fetch``, held in the kernel phase only."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import hash_probe as hp
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke_kvs",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert set(cs.KVS_MAIN_PATH) | set(cs.CHECK_ONLY) == set(hp.KERNELS)
+    assert not set(cs.KVS_MAIN_PATH) & set(cs.CHECK_ONLY)
+    for name in hp.KERNELS:
+        src, jax_file, line = cs.KERNELS[name]
+        assert src == "hash_probe.cu"
+        want = "get" if name == "get_walk" else name
+        text = (root / jax_file).read_text().splitlines()[line - 1]
+        assert text.startswith(f"def {want}("), (name, text)
