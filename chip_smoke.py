@@ -97,7 +97,8 @@ Phases, each printing one JSON line:
                   host cold tier: a kill mid-decode, recovery bit for bit
                   the never-crashed twin's, token streams byte-identical to
                   the twin's and to a plain engine's (``ref``);
-17. lm_serve    — all 48 layers in bf16 with the flash prefill, 96
+17. lm_serve    — 24 of its 48 layers (widths kept) in bf16 with the
+                  flash prefill, 96
                   requests (512-token prompts, caps up to 128) through 32
                   slots: the kernel engine (the launch counts), the plain
                   engine (free-running agreement, reported), a
@@ -124,12 +125,20 @@ Phases, each printing one JSON line:
                   argmax-equal, at least 64 decided, beside the control of
                   two plain versions; in f32 at full width and depth the
                   10% share; every layer's flash call against its plain
-                  version;
+                  version; a crash-and-recover cycle (below);
 21. lm_ssm_serve — RWKV6-1.6B (attention-free), all 24 layers in bf16, 32
                   requests through the dense engine: no hand-written
                   kernel on its path; the card against the CPU in f32 at
                   4 layers, 8 requests: equal token streams, states within
-                  1e-5 of each layer's scale;
+                  1e-5 of each layer's scale; a crash-and-recover cycle:
+                  the same requests through a fresh kernel engine, a full
+                  snapshot through ``DurabilityManager`` every 8 steps, a
+                  kill at step 20 (mid-decode, two flushes committed),
+                  ``recover`` into a fresh state equal bit for bit to the
+                  state flushed at the covered step, then steps to the end
+                  whose final state and responses equal the never-crashed
+                  kernel run's bit for bit (hybrid too, after phase 20's
+                  kernel run; its admission prefills launch flash);
 22. lm_audio     — MusicGen-large (4 codebooks, G 1), all 48 layers in
                   bf16: 8 x 512 frames through prefill with the flash
                   kernel, then 64 decode steps; the plain version beside
@@ -231,6 +240,7 @@ MERCI_RTOL, MERCI_ATOL = 1e-3, 1e-4  # tests/test_dlrm.py
 # qwen2_5_14b.py: 48 layers, d_model 5120, 40 q / 8 kv heads, hd 128,
 # d_ff 13824, vocab 152064, bf16), random weights from the seed
 LM_ARCH = "qwen2.5-14b"
+LM_LAYERS = 24  # lm_serve cut from 48 (widths kept) for the recovery cycles
 LM_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=128,
                  slots=32, admit_per_step=8, paged=True, page_size=16)
 LM_REQUESTS = 96
@@ -265,6 +275,10 @@ LM_HYBRID_ENGINE = dict(LM_ENGINE, paged=False, prompt_len=2048,
 LM_SSM_ARCH = "rwkv6-1.6b"
 LM_SSM_ENGINE = dict(LM_ENGINE, paged=False)
 LM_DENSE_REQUESTS = 32  # hybrid and ssm
+# their crash-and-recover cycles: a flush every LM_RECOVER_EVERY engine
+# steps, the kill after step LM_RECOVER_KILL (mid-decode, two flushes
+# committed)
+LM_RECOVER_EVERY, LM_RECOVER_KILL = 8, 20
 # the ssm card-against-CPU check: layers, requests, and its engine (8
 # slots, caps up to 32: the CPU decodes every slot each step)
 LM_SSM_CPU = (4, 8)
@@ -1105,12 +1119,13 @@ def step_summary(step_s, loop_s, served):
 
 def same_state(torch, a, b, what):
     """Two states (NamedTuples, dicts, lists of tensors) equal leaf for leaf
-    in dtype and bits."""
+    in dtype and bits. Dict fields are matched by name (the checkpointer
+    rebuilds dicts with their keys sorted, as JAX's trees keep them)."""
     def flat(x, path=""):
         if isinstance(x, torch.Tensor):
             return [(path, x)]
         if isinstance(x, dict):
-            return [p for k, v in x.items() for p in flat(v, f"{path}.{k}")]
+            return [p for k in sorted(x) for p in flat(x[k], f"{path}.{k}")]
         if hasattr(x, "_asdict"):
             return flat(x._asdict(), path)
         return [p for i, v in enumerate(x) for p in flat(v, f"{path}[{i}]")]
@@ -1547,6 +1562,8 @@ def phase_tx_resync(torch, tx, tc, cfg, es, snap):
 def tree_bytes(torch, tree):
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        tree = tree.values()
     return sum(tree_bytes(torch, x) for x in tree)
 
 
@@ -2313,11 +2330,7 @@ def lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts, caps,
     from repro_torch.launch.serve import build_engine
 
     step_fn, state = build_engine(cfg, ctx, ecfg, params, device)
-    q = ecfg.num_queues
-    qids = torch.arange(q, dtype=torch.int32)
-    for lo in range(0, len(prompts), q):
-        state = eng.lm_inject(state, qids[: len(prompts[lo: lo + q])],
-                              prompts[lo: lo + q], gen_caps=caps[lo: lo + q])
+    state = lm_inject_all(torch, eng, state, ecfg, prompts, caps)
     times = []
     for step in range(len(prompts) * ecfg.gen_len):
         torch.cuda.synchronize()
@@ -2331,6 +2344,16 @@ def lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts, caps,
             return state, times
     raise AssertionError(f"lm: {int(state.completed)} of {len(prompts)} "
                          "requests completed")
+
+
+def lm_inject_all(torch, eng, state, ecfg, prompts, caps):
+    """Every request into the rings, a wave of one per queue at a time."""
+    q = ecfg.num_queues
+    qids = torch.arange(q, dtype=torch.int32)
+    for lo in range(0, len(prompts), q):
+        state = eng.lm_inject(state, qids[: len(prompts[lo: lo + q])],
+                              prompts[lo: lo + q], gen_caps=caps[lo: lo + q])
+    return state
 
 
 def lm_responses(np, rb, state, caps, nq):
@@ -2899,6 +2922,101 @@ def lm_dense_run(torch, eng, serve, pa, fa, cfg, ctx, params, ecfg, prompts,
     return state, times, adm, launches, prof
 
 
+def lm_recover_cycle(torch, np, eng, rb, serve, pa, fa, cfg, ctx, params,
+                     ecfg, prompts, caps, twin, phase, smi):
+    """The durability path of a dense-engine family: the requests through a
+    fresh kernel engine, flushed through ``DurabilityManager`` every
+    LM_RECOVER_EVERY steps (full snapshots: the recurrent state is opaque
+    to the delta diff) and killed after step LM_RECOVER_KILL, mid-decode
+    with two flushes committed; ``recover`` into a fresh state, then steps
+    until every request is answered. The recovered state must equal the
+    state flushed at the covered step, and the final state, responses
+    included, the never-crashed ``twin``'s (the kernel run's final state),
+    bit for bit; each request answered once. Emits the cycle's line and
+    returns its launches (the admission prefills are all before the
+    kill)."""
+    from repro_torch.fault import recovery as frec
+
+    step_fn, state = serve.build_engine(cfg, ctx, ecfg, params, "cuda")
+    snap_b = tree_bytes(torch, state)
+    # two committed snapshots and one being written, at most
+    room = check_room(phase, 3 * snap_b)
+    root = tempfile.mkdtemp(prefix=f"orca-{phase}-")
+    n = len(prompts)
+    try:
+        pa.reset_launches()
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        state = lm_inject_all(torch, eng, state, ecfg, prompts, caps)
+        mgr = frec.DurabilityManager(frec.DurabilityConfig(
+            root, every=LM_RECOVER_EVERY, mode="adaptive"))
+        flushed = {}
+        for step in range(1, LM_RECOVER_KILL + 1):
+            state = step_fn(state)
+            if step % LM_RECOVER_EVERY == 0:
+                mgr.flush(state)
+                flushed = {step: clone_tree(torch, state)}
+        mgr.wait()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t_start
+        mid_decode = (int(state.completed) < n and bool(
+            (state.slot_active & (state.slot_done > 1)).any()))
+        committed = [r.step for r in mgr.committed()]
+        del state  # the kill: nothing of the live state survives
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fresh = serve.build_engine(cfg, ctx, ecfg, params, "cuda")[1]
+        stats = {}
+        state, covered = frec.recover(root, fresh, stats=stats)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        stats["truncated"] = [os.path.basename(p) for p in stats["truncated"]]
+        del fresh
+        if not mid_decode or len(committed) < 2 or covered != max(flushed):
+            raise AssertionError(f"{phase}: mid-decode {mid_decode}, "
+                                 f"committed {committed}, covered {covered}")
+        same_state(torch, state, flushed.pop(covered),
+                   f"{phase}: recovered vs flushed at step {covered}")
+        t0 = time.perf_counter()
+        steps = covered
+        while int(state.completed) < n:
+            if steps > n * ecfg.gen_len:
+                raise AssertionError(f"{phase}: {int(state.completed)} of "
+                                     f"{n} answered after recovery")
+            state = step_fn(state)
+            steps += 1
+        torch.cuda.synchronize()
+        after_s = time.perf_counter() - t0
+        same_state(torch, state, twin,
+                   f"{phase}: recovered run vs never-crashed twin")
+        answered = len(lm_responses(np, rb, state, caps, ecfg.num_queues))
+        launches = {**pa.launches, **fa.launches}
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    recs = mgr.records
+    emit({"phase": phase, "nvidia_smi": smi, "arch": cfg.name,
+          "layers": cfg.num_layers, "dtype": cfg.dtype,
+          "snapshot_bytes": snap_b, **room,
+          "flush_every": LM_RECOVER_EVERY, "kill_after_step": LM_RECOVER_KILL,
+          "committed_steps": committed, "covered": covered,
+          "flushes": flush_summary(recs),
+          "flush_bytes": [r.bytes for r in recs],
+          "host_copy_us": [r.copy_us for r in recs],
+          "mgr_stats": mgr.stats(), "recover": stats,
+          "recover_s": recover_s, "steps_after_recovery": steps - covered,
+          "requests": n, "answered": answered, "launches": launches,
+          "recovered_equals_flushed": True, "final_equals_twin": True,
+          "seconds": {"crash_run": run_s, "recover": recover_s,
+                      "after_recovery": after_s,
+                      "cycle": run_s + recover_s + after_s}})
+    if answered != n:
+        raise AssertionError(f"{phase}: {answered} answers to {n} requests")
+    return launches
+
+
 def step_summary_lm(times, adm, tokens):
     """Step medians (all, decode, admission) and tokens over the summed
     step times."""
@@ -2924,7 +3042,9 @@ def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
     of two plain versions (chunked attention against the plain flash); in
     f32 at full width and depth the standard LM_DECIDED_SHARE. Each
     prefill's layers walked through flash against its plain version.
-    Returns (the main path's launches, the f32 check's flash launches)."""
+    Between the kernel and plain runs, the crash-and-recover cycle
+    (``lm_recover_cycle``) against the kernel run. Returns (the main path's
+    launches, the f32 check's flash launches, the cycle's launches)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     start_gb = torch.cuda.memory_allocated() / 1e9
@@ -2940,6 +3060,11 @@ def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
         torch, eng, serve, pa, fa, cfg, ctx, params, ecfg, prompts, caps)
     secs["kernel_run"] = time.perf_counter() - t0
     resp_k = lm_responses(np, rb, state, caps, ecfg.num_queues)
+    t0 = time.perf_counter()
+    cycle = lm_recover_cycle(torch, np, eng, rb, serve, pa, fa, cfg, ctx,
+                             params, ecfg, prompts, caps, state,
+                             "lm_hybrid_recover", smi)
+    secs["recover_cycle"] = time.perf_counter() - t0
     del state
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3020,9 +3145,11 @@ def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
                w["layers_checked"] != cfg.num_layers]
     if not launches["flash_attention"] or any(plain.values()):
         failed.append(f"launches {launches}, plain engine {plain}")
+    if not cycle["flash_attention"]:
+        failed.append(f"recovery cycle launches {cycle}")
     if failed:
         raise AssertionError(f"lm_hybrid_serve: {failed}")
-    return launches, f32_launches
+    return launches, f32_launches, cycle
 
 
 def phase_lm_ssm_serve(torch, np, eng, serve, rb, cfg_mod, model, pa, fa,
@@ -3032,7 +3159,8 @@ def phase_lm_ssm_serve(torch, np, eng, serve, rb, cfg_mod, model, pa, fa,
     (the JAX package's ssm mixers have no Pallas kernel): the phase
     reports the engine and checks the card against the CPU in f32 at
     LM_SSM_CPU's layers and requests: equal token streams, each layer's
-    state within 1e-5 of its largest |s|."""
+    state within 1e-5 of its largest |s|. Then the crash-and-recover cycle
+    (``lm_recover_cycle``) against the kernel run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats()
     start_gb = torch.cuda.memory_allocated() / 1e9
@@ -3048,6 +3176,11 @@ def phase_lm_ssm_serve(torch, np, eng, serve, rb, cfg_mod, model, pa, fa,
     secs["run"] = time.perf_counter() - t0
     total = sum(len(r) for r in lm_responses(
         np, rb, state, caps, ecfg.num_queues).values())
+    t0 = time.perf_counter()
+    cycle = lm_recover_cycle(torch, np, eng, rb, serve, pa, fa, cfg, ctx,
+                             params, ecfg, prompts, caps, state,
+                             "lm_ssm_recover", smi)
+    secs["recover_cycle"] = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     del state, params
     torch.cuda.empty_cache()
@@ -3101,10 +3234,11 @@ def phase_lm_ssm_serve(torch, np, eng, serve, rb, cfg_mod, model, pa, fa,
                "s": states, "shift_max_abs_diff": shifts},
            "seconds": secs}
     emit(out)
-    if not (streams_equal and states_ok) or any(launches.values()):
+    if not (streams_equal and states_ok) or any(launches.values()) \
+            or any(cycle.values()):
         raise AssertionError(f"lm_ssm_serve: card against CPU: streams "
                              f"{streams_equal}, states {states_ok}; "
-                             f"launches {launches}")
+                             f"launches {launches}, recovery cycle {cycle}")
     del p_card, p_cpu, a, b, runs
     torch.cuda.empty_cache()
 
@@ -3606,7 +3740,7 @@ def main() -> int:
     crash = phase_lm_crash(torch, eng, lm_configs, model, pk, pa, fa, soak,
                            ctx, smi)
     launches = phase_lm_serve(torch, np, eng, rb, lm_configs, model, pk, pa,
-                              fa, ref, ctx, smi)
+                              fa, ref, ctx, smi, layers=LM_LAYERS)
     # the dense weights are freed: the MoE model's 61 GB take their place
     moe_launches = phase_lm_serve(
         torch, np, eng, rb, lm_configs, model, pk, pa, fa, ref, ctx, smi,
@@ -3618,7 +3752,7 @@ def main() -> int:
         phase="lm_vlm_serve", arch=LM_VLM_ARCH, requests=LM_VLM_REQUESTS,
         seed=SEED + 40, extra=lambda cfg, params: lm_media_check(
             torch, model, fa, params, cfg, ctx, SEED + 44))
-    hybrid_launches, hybrid_f32 = phase_lm_hybrid_serve(
+    hybrid_launches, hybrid_f32, hybrid_cycle = phase_lm_hybrid_serve(
         torch, np, eng, serve, rb, lm_configs, model, ops, pa, fa, ref, ctx,
         smi)
     phase_lm_ssm_serve(torch, np, eng, serve, rb, lm_configs, model, pa, fa,
@@ -3632,11 +3766,13 @@ def main() -> int:
     for name, e in lm_entries.items():
         e["launches"] = (launches[name] + crash["launches"][name]
                          + moe_launches[name] + vlm_launches[name]
-                         + hybrid_launches[name] + audio_launches[name])
+                         + hybrid_launches[name] + hybrid_cycle[name]
+                         + audio_launches[name])
         e["moe_shape"]["launches"] = moe_launches[name]
         e["vlm_shape"]["launches"] = vlm_launches[name]
     flash = lm_entries["flash_attention"]
-    flash["hybrid_shape"]["launches"] = hybrid_launches["flash_attention"]
+    flash["hybrid_shape"]["launches"] = (hybrid_launches["flash_attention"]
+                                         + hybrid_cycle["flash_attention"])
     # the f32 hybrid shape runs in a check, not on a main path
     flash["hybrid_f32_shape"]["launches"] = 0
     flash["hybrid_f32_shape"]["check_launches"] = hybrid_f32

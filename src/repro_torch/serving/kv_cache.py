@@ -88,6 +88,14 @@ def pages_in_use(state: PagedKVState, cfg: PagedKVConfig) -> torch.Tensor:
     return cfg.num_pages - state.free_top
 
 
+def kv_bytes_in_use(state: PagedKVState, cfg: PagedKVConfig) -> torch.Tensor:
+    """Resident KV bytes, bounded by the tokens held, rounded to pages. An
+    int64 count: a full-width pool passes 2^31 bytes."""
+    per_page = (2 * cfg.layers * cfg.page_size * cfg.kv_heads * cfg.head_dim
+                * state.k_pages.element_size())
+    return pages_in_use(state, cfg).to(torch.int64) * per_page
+
+
 def _cumrank(mask):
     """Rank of each True among the Trues before it (int32), -1 elsewhere
     up to the first True."""
@@ -231,6 +239,41 @@ def prefill_into_pages(state: PagedKVState, cfg: PagedKVConfig, slot_ids,
         page_table=table, lengths=lengths, free_top=free_top,
         residency=residency,
     ), mask
+
+
+# ---------------------------------------------------------------------------
+# Per-sequence forms (delegate to the batched ops)
+# ---------------------------------------------------------------------------
+
+def _one_hot(state: PagedKVState, seq: int) -> torch.Tensor:
+    mask = torch.zeros(state.lengths.shape, dtype=torch.bool,
+                       device=state.lengths.device)
+    mask[seq] = True
+    return mask
+
+
+def ensure_capacity(state: PagedKVState, cfg: PagedKVConfig, seq: int):
+    """Map a fresh page for ``seq`` when its next token crosses a page
+    boundary. Returns (state, ok): ok a 0-d bool tensor, False when the
+    pool or the sequence's table is exhausted."""
+    state, ok = ensure_capacity_batch(state, cfg, _one_hot(state, seq))
+    return state, ok[seq]
+
+
+def append_token(state: PagedKVState, cfg: PagedKVConfig, seq: int, k_new,
+                 v_new) -> PagedKVState:
+    """Append one token of ``seq``, in place. k_new/v_new: (L, KVH, HD),
+    the token's kv for every layer."""
+    b = state.lengths.shape[0]
+    kb = k_new[:, None].expand(k_new.shape[0], b, *k_new.shape[1:])
+    vb = v_new[:, None].expand(v_new.shape[0], b, *v_new.shape[1:])
+    return append_token_batch(state, cfg, kb, vb, _one_hot(state, seq))
+
+
+def release(state: PagedKVState, cfg: PagedKVConfig, seq: int
+            ) -> PagedKVState:
+    """Return a finished sequence's pages to the pool."""
+    return release_batch(state, cfg, _one_hot(state, seq))
 
 
 # ---------------------------------------------------------------------------

@@ -1553,3 +1553,114 @@ def test_bf16_train_steps_on_the_card_go_through_the_functions(dev):
     for a, b in zip(tree.leaves(params), tree.leaves(p)):
         assert b.dtype == a.dtype
     assert not torch.equal(params["embed"]["tok"], p["embed"]["tok"])
+
+
+# ------------- placement, single-slot pool forms, recurrent durability ------
+
+def test_device_put_tier_host_pins_a_cuda_tensor(dev):
+    from repro_torch.core import placement
+
+    x = torch.arange(4096, dtype=torch.float32, device=dev).reshape(64, 64)
+    y = placement.device_put_tier(x, placement.Tier.HOST)
+    assert y.device.type == "cpu" and y.is_pinned()
+    assert torch.equal(y, x.cpu())
+    for tier in (placement.Tier.L2, placement.Tier.HBM):
+        assert placement.device_put_tier(x, tier) is x
+
+
+def test_single_slot_pool_forms_on_the_card_equal_the_cpu(dev):
+    """ensure_capacity, append_token and release on CUDA tensors give the
+    CPU's states bit for bit, ok flags and byte counts included."""
+    from repro_torch.serving import kv_cache as pk
+    from torch_port_helpers import assert_same
+
+    cfg = pk.PagedKVConfig(num_pages=6, page_size=2, max_pages_per_seq=3,
+                           kv_heads=2, head_dim=8, layers=2)
+    rng = np.random.default_rng(9)
+    states = {d: pk.make(cfg, batch=3, dtype=torch.bfloat16, device=d)
+              for d in ("cpu", dev)}
+    for _ in range(40):
+        op, seq = int(rng.integers(0, 3)), int(rng.integers(0, 3))
+        kv = torch.from_numpy(rng.normal(size=(2, cfg.layers, cfg.kv_heads,
+                                               cfg.head_dim))).float()
+        oks = {}
+        for d, st in states.items():
+            if op < 2:
+                st, ok = pk.ensure_capacity(st, cfg, seq)
+                oks[d] = bool(ok)
+                if bool(ok):
+                    k, v = kv.to(d, torch.bfloat16)
+                    st = pk.append_token(st, cfg, seq, k, v)
+            else:
+                st = pk.release(st, cfg, seq)
+            states[d] = st
+        assert len(set(oks.values())) <= 1
+        assert_same(states["cpu"], states[dev])
+        assert int(pk.kv_bytes_in_use(states[dev], cfg)) == \
+            int(pk.kv_bytes_in_use(states["cpu"], cfg))
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("hymba-1.5b", 2048),
+                                             ("rwkv6-1.6b", 256)])
+def test_recurrent_crash_cycle_on_the_card_equals_its_twin(dev, tmp_path,
+                                                          arch, prompt_len):
+    """A recurrent family at full width cut to 2 layers, bf16, on the dense
+    kernel engine (hymba: prompts past its 1,024-token window, the flash
+    prefill): flushed every 8 steps, killed after step 20, recovered into
+    a fresh state equal to the one flushed at step 16, run on: the final
+    state and every response equal the never-crashed twin's bit for
+    bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.fault import recovery as frec
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import local_context
+    from torch_port_helpers import assert_same
+
+    cfg = get_config(arch).replace(num_layers=2, use_pallas_flash=True)
+    ctx = local_context()
+    params = init_params(0, cfg, ctx, dev)
+    ecfg = eng.LMEngineConfig(num_queues=2, capacity=8,
+                              prompt_len=prompt_len, gen_len=24, slots=4,
+                              admit_per_step=2, cache_len=1024)
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(1, cfg.vocab_size, (6, prompt_len)).astype(
+        np.int32)
+    caps = rng.integers(12, 25, 6).astype(np.int32)
+
+    def fresh():
+        step, state = serve.build_engine(cfg, ctx, ecfg, params, dev)
+        for lo in range(0, 6, 2):
+            state = eng.lm_inject(state, torch.arange(2),
+                                  prompts[lo:lo + 2], gen_caps=caps[lo:lo + 2])
+        return step, state
+
+    step, twin = fresh()
+    fa.reset_launches()
+    for _ in range(200):
+        twin = step(twin)
+        if int(twin.completed) == 6:
+            break
+    flash = fa.launches["flash_attention"]
+    assert (flash > 0) == (arch == "hymba-1.5b")
+    step, state = fresh()
+    mgr = frec.DurabilityManager(frec.DurabilityConfig(
+        str(tmp_path), every=8, mode="adaptive"))
+    for t in range(1, 21):
+        state = step(state)
+        if t % 8 == 0:
+            mgr.flush(state)
+            flushed = interop.to_numpy(state)
+    mgr.wait()
+    assert int(state.completed) < 6
+    assert [r.kind for r in mgr.records] == ["full", "full"]
+    del state  # the kill
+    recovered, covered = frec.recover(str(tmp_path), fresh()[1])
+    assert covered == 16
+    assert_same(flushed, recovered)
+    for _ in range(200):
+        if int(recovered.completed) == 6:
+            break
+        recovered = step(recovered)
+    assert int(recovered.steps) == int(twin.steps)
+    assert_same(twin, recovered)
