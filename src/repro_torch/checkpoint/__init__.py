@@ -1,7 +1,6 @@
 """Persistence: atomic snapshots (``checkpointer``) and the streamed,
-CRC-framed segment WAL (``wal``), both in the JAX package's on-disk format.
-The JAX package's ``elastic`` (resharding restore for training) is not
-ported yet."""
+CRC-framed segment WAL (``wal``), both in the JAX package's on-disk format;
+``elastic``, the resharding restore onto another mesh."""
 from repro_torch.checkpoint.checkpointer import (
     AsyncCheckpointer,
     clean_stale,

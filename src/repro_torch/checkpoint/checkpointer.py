@@ -358,11 +358,19 @@ def load_delta(directory: str, step: int) -> tuple[dict, dict[str, int]]:
     return arrays, meta
 
 
-def restore(directory: str, step: int, like):
+def restore(directory: str, step: int, like, shardings=None, *,
+            device=None):
     """Load snapshot ``step`` into the structure of ``like`` (a tree of
-    tensors of the same geometry). Each leaf is built on the device of
-    ``like``'s leaf (the CPU where that leaf is not a tensor), owning its
-    memory, with the dtype it was saved with. Returns (tree, step)."""
+    tensors, or meta tensors, of the saved geometry). Each leaf is built
+    on ``device`` if given, else on the device of ``like``'s leaf: the
+    card for a meta leaf (pass ``device="cpu"`` for the host), the CPU
+    where the leaf is not a tensor. It owns its memory and has the dtype
+    it was saved with. Returns (tree, step).
+
+    ``shardings`` (elastic restore): a matching tree of
+    ``sharding.NamedSharding`` for the TARGET mesh, or None. The snapshot
+    holds full logical arrays, so each leaf becomes this rank's block of
+    its array under the new spec, whatever mesh saved it."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -375,13 +383,17 @@ def restore(directory: str, step: int, like):
     missing = set(flat_like) - set(data)
     if missing:
         raise ValueError(f"checkpoint missing keys: {sorted(missing)[:5]}...")
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     out = {}
     for k, proto in flat_like.items():
         t = data[k]
         if tuple(t.shape) != tuple(shape_of(proto)):
             raise ValueError(f"shape mismatch for {k}: {tuple(t.shape)} vs "
                              f"{tuple(shape_of(proto))}")
-        if isinstance(proto, torch.Tensor):
-            t = t.to(proto.device)
-        out[k] = t
+        if flat_sh.get(k) is not None:
+            t = flat_sh[k].block(t).clone()
+        dev = device
+        if dev is None and isinstance(proto, torch.Tensor):
+            dev = "cuda" if proto.is_meta else proto.device
+        out[k] = t if dev is None else t.to(dev)
     return rebuild(like, out), manifest["step"]

@@ -21,9 +21,10 @@ scatter — goes through ``kernels.ops``, which dispatches between the CUDA
 kernels (``kernels/csrc/tx_commit.cu``) and their plain PyTorch versions
 by the ``kernel_backend`` knob (``auto | cuda | ref``); both agree bit for
 bit. The chain is a leading tensor axis, committed with ONE batched dual
-scatter over the replicas (:func:`chain_commit_apply`). The JAX package's
-SPMD chain (``chain_commit_spmd``, replicas sharded over a device mesh) is
-not ported yet.
+scatter over the replicas (:func:`chain_commit_apply`), or one replica a
+rank of a mesh axis (:func:`chain_commit_spmd`: the batch and the head's
+decision pass hop by hop down the chain, each rank commits with
+``commit``, the ACK passes back).
 
 Mutation: a commit writes ``log`` and ``store`` IN PLACE (the counterpart
 of the TPU kernels' ``input_output_aliases``; the plain versions do the
@@ -43,6 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import collectives as coll
 
 I32 = torch.int32
 
@@ -305,6 +307,51 @@ def chain_commit_local(chain: ReplicaState, batch, cfg: TxConfig, mask=None,
     deferred = (mask if mask is not None else torch.ones_like(proceed)) \
         & ~proceed
     return new_chain, proceed, deferred
+
+
+def chain_commit_spmd(replica: ReplicaState, batch, cfg: TxConfig, mesh,
+                      axis: str = "data", mask=None,
+                      *, kernel_backend: Optional[str] = "auto"):
+    """One replica a rank along ``axis`` of a running mesh (its size is
+    ``chain_len``); every rank calls this with its own replica. The head
+    (coordinate 0) runs concurrency control on ``batch``; the batch and
+    its ``proceed`` pass down the chain one hop at a time
+    (``ppermute``); every rank commits the forwarded plan with
+    :func:`replica_commit` (``commit``, one launch, for CUDA tensors
+    under ``auto``); the ACK passes back ``chain_len - 1`` hops.
+
+    Returns (this rank's replica, ack, deferred), as the JAX package's
+    ``shard_map`` blocks: ``ack`` is the tail's ``proceed`` on the head
+    and zeros elsewhere (a ppermute leaves zeros where nothing arrives),
+    ``deferred`` is ``mask & ~proceed``. The replica is committed IN
+    PLACE. Only the head's ``batch`` and ``mask`` are read for the
+    decision; the other ranks' give the shapes (and their ``mask`` their
+    ``deferred``)."""
+    r = cfg.chain_len
+    if mesh.shape[axis] != r:
+        raise ValueError(f"axis {axis!r} has {mesh.shape[axis]} ranks, "
+                         f"the chain {r} replicas")
+    if mask is None:
+        mask = torch.ones((batch.shape[0],), dtype=torch.bool,
+                          device=batch.device)
+    me = coll.axis_index(mesh, axis)
+    if me == 0:
+        n, off, _ = parse_tx(batch, cfg)
+        proceed = concurrency_control(n, off, cfg, mask)
+    else:
+        proceed = torch.zeros_like(mask)
+    for i in range(r - 1):  # hop i: rank i -> rank i + 1
+        b_nxt = coll.ppermute(batch, mesh, axis, [(i, i + 1)])
+        p_nxt = coll.ppermute(proceed, mesh, axis, [(i, i + 1)])
+        if me == i + 1:
+            batch, proceed = b_nxt, p_nxt
+    plan = plan_commit(batch, cfg, proceed=proceed)
+    new_rep = replica_commit(replica, plan, kernel_backend=kernel_backend)
+    ack = proceed
+    for i in range(r - 1):  # tail -> head
+        j = r - 1 - i
+        ack = coll.ppermute(ack, mesh, axis, [(j, j - 1)])
+    return new_rep, ack, mask & ~proceed
 
 
 def chain_hops(cfg: TxConfig, n_ops: int, per_op: bool) -> int:

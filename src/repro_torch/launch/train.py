@@ -1,5 +1,7 @@
 """Training launcher: the fault-tolerant driver loop of the JAX package's
-``repro/launch/train.py``, on one device.
+``repro/launch/train.py``, on one device; and the data-parallel step with
+ZeRO-1 (:func:`build_train_step` under a context whose mesh has data
+ranks).
 
 It composes the substrates: the deterministic data pipeline, AdamW with
 the warmup-cosine schedule, optional int8 error-feedback gradient
@@ -34,10 +36,12 @@ from repro_torch.data import DataConfig, TokenPipeline
 from repro_torch.fault import StragglerDetector, with_retries
 from repro_torch.models import init_params, loss_fn, postprocess_grads
 from repro_torch.optim import AdamWConfig, init as opt_init, \
-    update as opt_update, warmup_cosine
+    update as opt_update, warmup_cosine, zero1_update
 from repro_torch.tree import leaves, tree_map
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import compress as gc
-from repro_torch.parallel.sharding import local_context
+from repro_torch.parallel.sharding import batch_spec, local_context, \
+    shard_block
 
 
 def grads_of(params, batch, cfg, ctx, *, chunk: int = 512):
@@ -54,6 +58,13 @@ def grads_of(params, batch, cfg, ctx, *, chunk: int = 512):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def local_batch(batch, ctx):
+    """This rank's rows of a global batch (``batch_spec``: the leading
+    dim over the batch axes)."""
+    spec = batch_spec(ctx)
+    return {k: shard_block(v, spec, ctx.mesh) for k, v in batch.items()}
+
+
 def build_train_step(cfg, ctx, opt_cfg, *, compress: bool = False,
                      chunk: int = 512):
     """``step(params, opt, err, batch) -> (params, opt, err, metrics)``:
@@ -61,7 +72,22 @@ def build_train_step(cfg, ctx, opt_cfg, *, compress: bool = False,
     ``opt.step``, the kv-replica tie, the compression round trip when
     ``compress`` (``err`` the residuals, else None), and one AdamW update.
     Nothing is written in place: the caller's params and state stay
-    valid."""
+    valid.
+
+    Under a context with a mesh, every rank calls the step with the same
+    global batch and takes its rows of it (:func:`local_batch`); ``opt``
+    (and ``err``, then ``compress.init_error(opt.m)``) hold this rank's
+    ZeRO-1 blocks (``optim.zero1_init``) and the update is
+    ``optim.zero1_update``. Each rank's gradient is
+    weighted by its share of the batch's tokens, so the reduced gradient
+    and the loss are the global batch's: the single-device step's. MoE
+    is refused there: its capacity and load-balance statistics depend on
+    the whole batch, and the dispatch that reduces them over the data
+    axis is not wired into the stack."""
+    if ctx.mesh is not None:
+        return _build_zero1_step(cfg, ctx, opt_cfg, compress=compress,
+                                 chunk=chunk)
+
     def train_step(params, opt, err, batch):
         lr = warmup_cosine(opt.step)
         loss, metrics, grads = grads_of(params, batch, cfg, ctx, chunk=chunk)
@@ -69,6 +95,33 @@ def build_train_step(cfg, ctx, opt_cfg, *, compress: bool = False,
         if compress:
             grads, err = gc.roundtrip(grads, err)
         params, opt, om = opt_update(grads, opt, params, lr, opt_cfg)
+        return params, opt, err, {"loss": loss, "lr": lr, **metrics, **om}
+
+    return train_step
+
+
+def _build_zero1_step(cfg, ctx, opt_cfg, *, compress: bool, chunk: int):
+    if len(ctx.batch_axes) != 1:
+        raise NotImplementedError("ZeRO-1 reduces over one data axis")
+    if cfg.is_moe and ctx.dp > 1:
+        raise NotImplementedError(
+            "data-parallel MoE training needs the batch-wide capacity and "
+            "router statistics (the shard_map dispatch is not wired in)")
+    mesh, axes = ctx.mesh, ctx.batch_axes
+
+    def train_step(params, opt, err, batch):
+        lr = warmup_cosine(opt.step)
+        local = local_batch(batch, ctx)
+        share = local["labels"].numel() / batch["labels"].numel()
+        loss, metrics, grads = grads_of(params, local, cfg, ctx, chunk=chunk)
+        grads = postprocess_grads(grads, cfg, ctx)
+        grads = tree_map(lambda g: g.float() * share, grads)
+        params, opt, err, om = zero1_update(
+            grads, opt, params, lr, opt_cfg, ctx, err=err,
+            compress=gc.roundtrip if compress else None)
+        loss = coll.psum(loss.float() * share, mesh, axes)
+        metrics = {k: coll.psum(v.float() * share, mesh, axes)
+                   for k, v in metrics.items()}
         return params, opt, err, {"loss": loss, "lr": lr, **metrics, **om}
 
     return train_step

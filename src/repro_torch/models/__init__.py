@@ -5,10 +5,14 @@ prefill/decode entry points over either decode substrate
 ``serving.kv_cache``)."""
 from repro_torch.models.model import (
     DecodeState,
+    abstract_params,
+    batch_specs,
     check_paged_support,
+    decode_state_specs,
     decode_step,
     forward,
     init_params,
+    input_specs,
     loss_fn,
     make_decode_state,
     make_paged_kv_config,

@@ -11,14 +11,14 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import tie_kv_grads
 from repro_torch.models.layers import (
     dtype_of, embed_apply, embed_init, lm_head_apply, lm_head_init, rmsnorm,
     rmsnorm_init,
 )
-from repro_torch.parallel.sharding import ParallelContext, shard
+from repro_torch.parallel.sharding import P, ParallelContext, shard
 
 I32 = torch.int32
 
@@ -39,10 +39,13 @@ def init_params(seed: int, cfg: ModelConfig, ctx: ParallelContext,
     ``{"embed": {"tok"}, "layers": {L-stacked block params},
     "final_norm": {"scale"}[, "lm_head": {"w"}]}``. The draws differ from
     JAX's; tests carry JAX's params across with
-    ``interop.lm_params_from_numpy``."""
+    ``interop.lm_params_from_numpy``. On the ``meta`` device nothing is
+    drawn or allocated (:func:`abstract_params`)."""
     tf.check_family(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # a generator feeds no meta sampler: meta draws take none
+    gen = None if device.type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     plan = tf.plan_for(cfg, ctx)
     params = {
         "embed": embed_init(gen, cfg, device),
@@ -52,6 +55,12 @@ def init_params(seed: int, cfg: ModelConfig, ctx: ParallelContext,
     if not cfg.tie_embeddings:
         params["lm_head"] = lm_head_init(gen, cfg, device)
     return params
+
+
+def abstract_params(cfg: ModelConfig, ctx: ParallelContext):
+    """The params' skeleton: meta tensors of their shapes and dtypes, at
+    the context's tensor-parallel head padding. Nothing is allocated."""
+    return init_params(0, cfg, ctx, device="meta")
 
 
 def _positions_for(cfg: ModelConfig, tokens):
@@ -265,3 +274,79 @@ def prefill_kv(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
         chunk=chunk, emit_kv=True, backend=kernel_backend,
         capacity_tokens=capacity_tokens)
     return kvs["k"], kvs["v"], _head(params, h[:, -1:], cfg)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# PartitionSpecs for serving state and batches; abstract inputs
+# ---------------------------------------------------------------------------
+
+def _batch_axis_or_none(cfg_batch: int, ctx: ParallelContext):
+    """Shard batch over the data axes only when it divides evenly."""
+    if ctx.mesh is None:
+        return None
+    if cfg_batch % ctx.dp != 0:
+        return None
+    axes = ctx.batch_axes
+    return axes[0] if len(axes) == 1 else axes
+
+
+def decode_state_specs(cfg: ModelConfig, ctx: ParallelContext, batch: int):
+    """PartitionSpec tree mirroring ``make_decode_state``'s structure."""
+    bs = _batch_axis_or_none(batch, ctx)
+    m = ctx.model_axis if ctx.mesh is not None else None
+    tp = max(ctx.tp, 1)
+    layer: dict = {}
+    if cfg.family == "ssm":
+        h = cfg.d_model // (cfg.resolved_head_dim or 64)
+        layer["s"] = P(None, bs, m if h % tp == 0 else None, None, None)
+        layer["tshift"] = P(None, bs, None)
+        layer["cshift"] = P(None, bs, None)
+    elif cfg.kv_cache_layout == "dot":
+        layer["k"] = P(None, bs, m, None, None)
+        layer["v"] = P(None, bs, m, None, None)
+        layer["pos"] = P(None, bs, None)
+    else:
+        layer["k"] = P(None, bs, None, m, None)
+        layer["v"] = P(None, bs, None, m, None)
+        layer["pos"] = P(None, bs, None)
+        if cfg.family == "hybrid":
+            hm = (cfg.d_model * cfg.ssm_expand) // 64
+            layer["s"] = P(None, bs, m if hm % tp == 0 else None, None, None)
+    return DecodeState(layers=layer, pos=P(bs))
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, ctx: ParallelContext):
+    """PartitionSpecs matching ``input_specs(cfg, shape)``."""
+    bs = _batch_axis_or_none(shape.global_batch, ctx)
+    if shape.kind in ("train", "prefill"):
+        tok = P(bs, None, None) if cfg.num_codebooks else P(bs, None)
+        out = {"tokens": tok}
+        if shape.kind == "train":
+            out["labels"] = tok
+        if cfg.media_tokens:
+            out["media"] = P(bs, None, None)
+        return out
+    tok = P(bs, None) if cfg.num_codebooks else P(bs)
+    return {"tokens": tok}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta-tensor stand-ins (shape and dtype, no storage) for every model
+    input of a shape: the JAX package's ``ShapeDtypeStruct``s."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt=I32):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind in ("train", "prefill"):
+        toks = (b, s, cfg.num_codebooks) if cfg.num_codebooks else (b, s)
+        spec = {"tokens": meta(toks)}
+        if shape.kind == "train":
+            spec["labels"] = meta(toks)
+        if cfg.media_tokens:
+            spec["media"] = meta((b, cfg.media_tokens, cfg.d_model),
+                                 torch.bfloat16)
+        return spec
+    # decode: one new token per sequence, cache of length s
+    toks = (b, cfg.num_codebooks) if cfg.num_codebooks else (b,)
+    return {"tokens": meta(toks)}

@@ -5,8 +5,11 @@ The JAX package's baseline path (``moe_apply``), which it also takes at
 world size 1. Tokens are requests, experts are accelerators and the
 capacity buffer is the ring: every (token, expert) assignment gets a slot
 in its expert's buffer in token order, and an assignment past the
-capacity is dropped. The JAX package's explicit all-to-all and expert-TP
-variants (``shard_map``) are not ported.
+capacity is dropped. The JAX package's explicit expert-TP and all-to-all
+EP variants (``shard_map``) are :func:`moe_apply_tp_shardmap` and
+:func:`moe_apply_ep_shardmap`: per-rank functions over the collectives of
+``parallel.collectives``, not yet wired into the stack (which runs
+``moe_apply``).
 
 What keeps the port equal to JAX:
 
@@ -35,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
     act_fn, dense_init, dtype_of, needs_grad, normal,
 )
+from repro_torch.parallel import collectives as coll
 
 F32 = torch.float32
 
@@ -162,7 +166,29 @@ def moe_apply(params, x, cfg: ModelConfig, *, no_drop: bool = False,
 
     gates, idx, aux = _route(params, x_flat, cfg)
     cap = t if no_drop else _capacity(capacity_tokens or t, cfg, e)
+    y = _experts_local(params, x_flat, gates, idx, cap, cfg)
+    return y.to(x.dtype).reshape(shape), aux
 
+
+def _combine(picked, gates, t: int, k: int):
+    """Each token's k gate-weighted outputs added in order, from f32
+    zeros (no atomics)."""
+    weighted = (picked.float() * gates.reshape(-1)[:, None]).reshape(
+        t, k, -1)
+    y = torch.zeros((t, weighted.shape[-1]), dtype=F32,
+                    device=picked.device)
+    for j in range(k):
+        y = y + weighted[:, j]
+    return y
+
+
+def _experts_local(params, x_flat, gates, idx, cap: int, cfg: ModelConfig):
+    """Dispatch ``x_flat``'s assignments to every expert's capacity buffer
+    (slots in token order, past ``cap`` dropped), run the experts held in
+    ``params``, and combine: (T, D) f32."""
+    t, d = x_flat.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    dev = x_flat.device
     flat_e = idx.reshape(-1)  # (T*k,)
     pos = _dispatch_positions(flat_e, e)
     keep = pos < cap
@@ -170,7 +196,7 @@ def moe_apply(params, x, cfg: ModelConfig, *, no_drop: bool = False,
     src_token = torch.arange(t, device=dev).repeat_interleave(k)
 
     # the dropped assignments land on the spare row e*cap, sliced off
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=dev)
+    buf = torch.zeros((e * cap + 1, d), dtype=x_flat.dtype, device=dev)
     buf[dest] = x_flat[src_token]
     out_buf = _expert_ffn(params["w_gate"], params["w_in"], params["w_out"],
                           buf[: e * cap].reshape(e, cap, d), cfg.act)
@@ -178,8 +204,105 @@ def moe_apply(params, x, cfg: ModelConfig, *, no_drop: bool = False,
     flat_out = out_buf.reshape(e * cap, d)
     picked = torch.where(keep[:, None],
                          flat_out[torch.clamp(dest, max=e * cap - 1)], 0.0)
-    weighted = (picked.float() * gates.reshape(-1)[:, None]).reshape(t, k, d)
-    y = torch.zeros((t, d), dtype=F32, device=dev)
-    for j in range(k):  # in order, no atomics
-        y = y + weighted[:, j]
-    return y.to(x.dtype).reshape(shape), aux
+    return _combine(picked, gates, t, k)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's shard_map dispatches, per rank
+# ---------------------------------------------------------------------------
+
+def moe_apply_tp_shardmap(params, x, cfg: ModelConfig, ctx):
+    """Expert-TP dispatch on one rank of ``ctx.mesh`` (not EP): every
+    (batch, model) rank dispatches its OWN tokens into its OWN capacity
+    buffer (no collective), runs its d_ff block of every expert, and the
+    partial sums meet in one ``psum`` over the model axis — the all-reduce
+    a dense TP MLP pays.
+
+    ``params``: ``router`` (D, E) whole; ``w_gate``/``w_in`` (E, D, F/tp)
+    and ``w_out`` (E, F/tp, D), this rank's d_ff block (the JAX package's
+    in_specs ``P(None, None, m)``, ``P(None, m, None)``). ``x``: (B_loc,
+    S, D), this rank's rows (batch over the batch axes, replicated over
+    model). Returns (y (B_loc, S, D), aux): the aux loss from router
+    statistics averaged over the batch axes."""
+    mesh = ctx.mesh
+    assert mesh is not None and not ctx.use_ep
+    b_loc, s, d = x.shape
+    t = b_loc * s
+    xf = x.reshape(t, d)
+    gates, idx, me, ce = _route_raw(params, xf, cfg)
+    axes = ctx.batch_axes
+    aux = cfg.num_experts * torch.sum(coll.pmean(me, mesh, axes)
+                                      * coll.pmean(ce, mesh, axes))
+    cap = _capacity(t, cfg, cfg.num_experts)
+    y = _experts_local(params, xf, gates, idx, cap, cfg)
+    y = coll.psum(y, mesh, ctx.model_axis)  # the d_ff partial sums
+    return y.to(x.dtype).reshape(b_loc, s, d), aux
+
+
+def moe_apply_ep_shardmap(params, x, cfg: ModelConfig, ctx):
+    """Expert-parallel dispatch on one rank of ``ctx.mesh``: two
+    all-to-alls over the model axis move only capacity buffers
+    (tokens-as-requests), never whole activations.
+
+    ``params``: ``router`` whole; ``w_gate``, ``w_in``, ``w_out`` this
+    rank's E/tp experts (in_specs ``P(m, None, None)``). ``x``: (B_loc, S,
+    D), this rank's rows, equal on every model rank; each model rank
+    routes its 1/tp of them. Returns (y (B_loc, S, D), aux), y gathered
+    back over the model axis; aux from the router statistics averaged
+    over the model and batch axes (the exact global aux loss)."""
+    mesh = ctx.mesh
+    assert mesh is not None and ctx.use_ep
+    tp, m = ctx.tp, ctx.model_axis
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    e_loc = e // tp
+    b_loc, s, d = x.shape
+    t_loc = b_loc * s
+    t_m = t_loc // tp
+    dev = x.device
+    r = coll.axis_index(mesh, m)
+    xm = x.reshape(t_loc, d)[r * t_m:(r + 1) * t_m]
+
+    gates, idx, me, ce = _route_raw(params, xm, cfg)
+    axes = (m,) + tuple(ctx.batch_axes)
+    me = coll.pmean(me, mesh, axes)
+    ce = coll.pmean(ce, mesh, axes)
+    aux = e * torch.sum(me * ce)
+    flat_e = idx.reshape(-1)
+    dest_rank = flat_e // e_loc
+    cap_s = _capacity(t_m, cfg, tp)  # per-destination-rank send capacity
+    pos = _dispatch_positions(dest_rank, tp)
+    keep = pos < cap_s
+    dest = torch.where(keep, dest_rank * cap_s + pos, tp * cap_s)
+    src = torch.arange(t_m, device=dev).repeat_interleave(k)
+
+    send = torch.zeros((tp * cap_s + 1, d), dtype=x.dtype, device=dev)
+    send[dest] = xm[src]
+    meta = torch.full((tp * cap_s + 1,), -1, dtype=torch.int32, device=dev)
+    meta[dest] = (flat_e % e_loc).to(torch.int32)
+    recv = coll.all_to_all(send[: tp * cap_s].reshape(tp, cap_s, d), mesh,
+                           m).reshape(tp * cap_s, d)
+    rmeta = coll.all_to_all(meta[: tp * cap_s].reshape(tp, cap_s), mesh,
+                            m).reshape(tp * cap_s)
+
+    # local second-level dispatch to the e_loc experts (-1 rows: none;
+    # their positions come from a spare bucket e_loc and are masked)
+    cap2 = _capacity(tp * cap_s, cfg.replace(num_experts_per_tok=1), e_loc)
+    lpos = _dispatch_positions(torch.where(rmeta >= 0, rmeta, e_loc),
+                               e_loc + 1)
+    lkeep = (lpos < cap2) & (rmeta >= 0)
+    ldest = torch.where(lkeep, rmeta * cap2 + lpos, e_loc * cap2)
+    buf = torch.zeros((e_loc * cap2 + 1, d), dtype=x.dtype, device=dev)
+    buf[ldest] = recv
+    buf = buf[: e_loc * cap2].reshape(e_loc, cap2, d)
+
+    out = _expert_ffn(params["w_gate"], params["w_in"], params["w_out"], buf,
+                      cfg.act).reshape(-1, d)
+    back = torch.where(lkeep[:, None],
+                       out[torch.clamp(ldest, max=e_loc * cap2 - 1)], 0.0)
+    ret = coll.all_to_all(back.reshape(tp, cap_s, d), mesh,
+                          m).reshape(tp * cap_s, d)
+    picked = torch.where(keep[:, None],
+                         ret[torch.clamp(dest, max=tp * cap_s - 1)], 0.0)
+    ym = _combine(picked, gates, t_m, k)
+    y = coll.all_gather(ym.to(x.dtype), mesh, m, 0)  # re-replicate
+    return y.reshape(b_loc, s, d), aux

@@ -1664,3 +1664,90 @@ def test_recurrent_crash_cycle_on_the_card_equals_its_twin(dev, tmp_path,
         recovered = step(recovered)
     assert int(recovered.steps) == int(twin.steps)
     assert_same(twin, recovered)
+
+
+# ---------------------------------------------------------------------------
+# Ranks that share the card: gloo, CUDA tensors staged through host memory
+# ---------------------------------------------------------------------------
+
+def _chain_batches(n=4, b=6, seed=0):
+    """Seeded transaction batches at the small SPMD shape (offsets in
+    [0, 12) so transactions conflict) and their masks."""
+    rng = np.random.default_rng(seed)
+    cfg = tx.TxConfig(num_keys=256, val_words=4, max_ops=3, chain_len=3,
+                      log_capacity=64)
+    batches, masks = [], []
+    for _ in range(n):
+        batch = np.zeros((b, tx.tx_words(cfg)), np.int32)
+        for i in range(b):
+            k = int(rng.integers(1, 4))
+            batch[i, 0] = k
+            for j in range(k):
+                base = 1 + j * (1 + cfg.val_words)
+                batch[i, base] = int(rng.integers(0, 12))
+                batch[i, base + 1:base + 1 + cfg.val_words] = rng.integers(
+                    -9, 9, cfg.val_words)
+        batches.append(batch)
+        masks.append(rng.random(b) > 0.1)
+    return batches, masks
+
+
+def test_chain_commit_spmd_launches_commit_on_every_rank(dev):
+    """3 ranks on the card, one replica each: every rank launches commit
+    once a batch, and its replica and decisions equal chain_commit_local's
+    (the commit_chain kernel) bit for bit."""
+    import torch_multirank_ranks as ranks
+    from repro_torch.parallel import collectives as coll
+
+    batches, masks = _chain_batches()
+    out = coll.launch(ranks.cuda_chain_rank, 3, backend="gloo",
+                      args=(batches, masks), timeout=300)
+    for r, (same, launches, committed) in enumerate(out):
+        assert same, r
+        assert launches == {"commit": len(batches),
+                            "commit_chain": len(batches)}, launches
+        assert committed == out[0][2] > 0
+
+
+def test_host_staged_collectives_match_cpu(dev):
+    """Every collective on CUDA tensors (staged through page-locked host
+    buffers on gloo) returns what it returns on CPU tensors."""
+    import torch_multirank_ranks as ranks
+    from repro_torch.parallel import collectives as coll
+
+    cpu = coll.launch(ranks.collectives_rank, 4, backend="gloo",
+                      args=("cpu",), timeout=300)
+    card = coll.launch(ranks.collectives_rank, 4, backend="gloo",
+                       args=("cuda",), timeout=300)
+    for a, b in zip(cpu, card):
+        assert a.keys() == b.keys()
+        for k in a:
+            if isinstance(a[k], np.ndarray):
+                assert a[k].dtype == b[k].dtype, k
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            else:
+                assert a[k] == b[k], k
+
+
+def test_elastic_resume_defaults_to_the_card(dev, tmp_path):
+    """``elastic.resume`` and ``restore`` from meta templates with no
+    ``device`` put every leaf on the card, as JAX's resume places its
+    arrays on the accelerator."""
+    from repro_torch.checkpoint import checkpointer, elastic
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.parallel.sharding import P
+
+    tree = {"w": torch.arange(32, dtype=torch.float32).reshape(8, 4),
+            "b": torch.arange(4, dtype=torch.int32)}
+    checkpointer.save(str(tmp_path), 2, tree)
+    like = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in tree.items()}
+    ctx = lmesh.make_context(lmesh.make_test_mesh((1,), ("data",)), None)
+    got, step = elastic.resume(str(tmp_path), like, ctx,
+                               specs={"w": P(), "b": P()})
+    got2, _ = checkpointer.restore(str(tmp_path), 2, like)
+    assert step == 2
+    for out in (got, got2):
+        for k, v in tree.items():
+            assert out[k].device.type == "cuda", k
+            assert torch.equal(out[k].cpu(), v), k

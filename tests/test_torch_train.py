@@ -189,8 +189,8 @@ def test_postprocess_grads_ties_only_replicated_plans():
     plan = sharding.head_plan(cfg.num_heads, cfg.num_kv_heads, 4)
     assert plan.repl == 4 and plan.kv_phys == 4
     grads["layers"]["attn"]["wk"] = torch.randn(2, 16, 4, 8)
-    four = model.postprocess_grads(grads, cfg,
-                                   sharding.ParallelContext(world_size=4))
+    four = model.postprocess_grads(grads, cfg, sharding.ParallelContext(
+        mesh=sharding.Mesh((1, 4), ("data", "model"))))
     want = attn.tie_kv_grads(grads["layers"]["attn"], plan)
     assert torch.equal(four["layers"]["attn"]["wk"], want["wk"])
     assert four["layers"]["attn"]["wq"] is grads["layers"]["attn"]["wq"]

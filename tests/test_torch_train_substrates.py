@@ -37,6 +37,7 @@ from repro_torch.launch import train
 from repro_torch.models import model
 from repro_torch.parallel import compress as gc
 from repro_torch.parallel import sharding
+from repro_torch.tree import leaves as tree_leaves
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -161,6 +162,29 @@ def test_adamw_weight_decay_skips_vectors():
     assert torch.equal(new["v"], params["v"])
 
 
+def test_adamw_update_takes_a_given_norm():
+    """``gnorm=`` replaces the computed global norm in the clip: its own
+    norm gives the same bits, twice it (the clip active) half the first
+    moment, exactly."""
+    cfg = optim.AdamWConfig(grad_clip=0.5)
+    jp, jg = _tree(7, bf16_param=False)
+    params, grads = _cross(jp), _cross(jg)
+    opt = optim.init(params, cfg)
+    norm = optim.global_norm(grads)
+    assert float(norm) > cfg.grad_clip
+    p1, o1, m1 = optim.update(grads, opt, params, 1e-3, cfg)
+    p2, o2, m2 = optim.update(grads, opt, params, 1e-3, cfg, gnorm=norm)
+    _, o3, m3 = optim.update(grads, opt, params, 1e-3, cfg, gnorm=2 * norm)
+    assert float(m2["grad_norm"]) == float(m1["grad_norm"])
+    assert float(m3["grad_norm"]) == 2 * float(norm)
+    for a, b, c in zip(tree_leaves(o1.m), tree_leaves(o2.m),
+                       tree_leaves(o3.m)):
+        assert torch.equal(a, b)
+        assert torch.equal(c, a / 2)
+    for a, b in zip(tree_leaves(p1), tree_leaves(p2)):
+        assert torch.equal(a, b)
+
+
 # ------------------------------- schedule ----------------------------------
 
 @pytest.mark.parametrize("step", [0, 50, 100, 5_000, 10_000, 12_000])
@@ -212,6 +236,34 @@ def test_compress_roundtrip_bit_equal(seed):
                         jax.tree_util.tree_leaves(interop.to_numpy(td))):
             assert np.array_equal(x, y)
     assert first == [127, 0, 2, 2, 0, -2, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compress_blocks_take_the_whole_leafs_scale(seed):
+    """Each half of every leaf compressed alone, with ``amax`` giving the
+    max over both halves (what a ``pmax`` over two ranks gives), equals
+    the whole leaf compressed, bit for bit: payloads, scales, residuals."""
+    rng = np.random.default_rng(seed)
+    whole = {"a": torch.from_numpy(rng.normal(size=(6, 4)).astype(
+                 np.float32)),
+             "b": torch.from_numpy(rng.normal(size=(8,)).astype(
+                 np.float32) * 3)}
+    err = {k: torch.from_numpy(rng.normal(size=v.shape).astype(
+        np.float32) * 0.01) for k, v in whole.items()}
+    halves = [{k: v.chunk(2)[i] for k, v in t.items()}
+              for t in (whole, err) for i in range(2)]
+    g0, g1, e0, e1 = halves
+    local = [torch.stack([(g[k] + e[k]).abs().max() for k in sorted(g)])
+             for g, e in ((g0, e0), (g1, e1))]
+    both = torch.maximum(*local)
+    q, s, r = gc.compress(whole, err)
+    parts = [gc.compress(g, e, amax=lambda mx: both)
+             for g, e in ((g0, e0), (g1, e1))]
+    for k in whole:
+        assert torch.equal(torch.cat([p[0][k] for p in parts]), q[k]), k
+        assert torch.equal(parts[0][1][k], s[k]), k
+        assert torch.equal(parts[1][1][k], s[k]), k
+        assert torch.equal(torch.cat([p[2][k] for p in parts]), r[k]), k
 
 
 def test_compression_error_feedback_converges():
