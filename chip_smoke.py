@@ -8,8 +8,9 @@ Qwen3-MoE-30B-A3B and Qwen2-VL-7B (paged), Hymba-1.5B and RWKV6-1.6B
 ORCA engine and the hand-written CUDA kernels, at deployment sizes,
 with the fault and durability layer (fault injection, chain failover,
 snapshots, the WAL and crash recovery) on the TX, KVS and LM paths;
-trains Qwen1.5-0.5B through the port's training launcher; and holds
-every kernel against its plain PyTorch version.
+trains Qwen1.5-0.5B through the port's training launcher; serves both
+LM models under tensor parallelism on two ranks sharing the card; and
+holds every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -98,7 +99,9 @@ Phases, each printing one JSON line:
                   heads), bf16 and f32, flash also with window 128, and
                   the paged walk over 4 sequences of 16,384 tokens (bf16);
                   both again at the MoE model's heads (32 q / 4 kv, so
-                  G = 8, the paged kernel's largest group), bf16; each
+                  G = 8, the paged kernel's largest group), bf16, and
+                  flash at one of lm_tp_serve's 2 ranks' heads (20 q /
+                  4 kv and 16 q / 2 kv); each
                   with its library call's device time where there is one,
                   the paged cases with their split count;
 16. lm_serve_f32 — Qwen2.5-14B at full width cut to 4 layers, f32: the
@@ -110,7 +113,7 @@ Phases, each printing one JSON line:
                   host cold tier: a kill mid-decode, recovery bit for bit
                   the never-crashed twin's, token streams byte-identical to
                   the twin's and to a plain engine's (``ref``);
-18. lm_serve    — 16 of its 48 layers (widths kept) in bf16 with the
+18. lm_serve    — 12 of its 48 layers (widths kept) in bf16 with the
                   flash prefill, 96
                   requests (512-token prompts, caps up to 128) through 32
                   slots: the kernel engine (the launch counts), the plain
@@ -119,26 +122,27 @@ Phases, each printing one JSON line:
                   decide at least 10% (and 64) of its rows with equal
                   argmax, and a per-layer walk check of the live pool;
 19. lm_moe_serve — the same for Qwen3-MoE-30B-A3B at full width cut to
-                  16 of its 48 layers, in bf16 (128 experts, top 8; 21
+                  12 of its 48 layers, in bf16 (128 experts, top 8; 16
                   GB of weights), after the dense weights are freed: the
                   same engine and requests, the same checks, and the share
                   of (token, layer) top-8 expert sets on which the kernel
                   and plain paths agree in the teacher-forced window
                   (reported);
-20. lm_vlm_serve — Qwen2-VL-7B (M-RoPE, G 7), 14 of its 28 layers in bf16,
+20. lm_vlm_serve — Qwen2-VL-7B (M-RoPE, G 7), 10 of its 28 layers in bf16,
                   the
                   same engine and checks, 32 requests, and a media prefill
                   (1,024 media positions) against the plain version and
                   against no media, whose logits it must change;
 21. lm_hybrid_serve — Hymba-1.5B (attention in a 1,024-token window beside
-                  a Mamba branch), all 32 layers in bf16, 32 requests of
+                  a Mamba branch), 24 of its 32 layers in bf16, 32
+                  requests of
                   2,048 tokens through the dense ring engine with the
                   flash prefill, the plain engine beside it; the
                   teacher-forced rows of 8 prompts (every position, then
                   16 decode steps): in bf16 every decided row
                   argmax-equal, at least 64 decided, beside the control of
-                  two plain versions; in f32 at full width and depth the
-                  10% share; every layer's flash call against its plain
+                  two plain versions; in f32 at full width and that depth
+                  the 10% share; every layer's flash call against its plain
                   version; a crash-and-recover cycle (below);
 22. lm_ssm_serve — RWKV6-1.6B (attention-free), all 24 layers in bf16, 32
                   requests through the dense engine: no hand-written
@@ -153,7 +157,7 @@ Phases, each printing one JSON line:
                   whose final state and responses equal the never-crashed
                   kernel run's bit for bit (hybrid too, after phase 20's
                   kernel run; its admission prefills launch flash);
-23. lm_audio     — MusicGen-large (4 codebooks, G 1), 24 of its 48 layers
+23. lm_audio     — MusicGen-large (4 codebooks, G 1), 16 of its 48 layers
                   in bf16: 8 x 512 frames through prefill with the flash
                   kernel, then 64 decode steps; the plain version beside
                   it; the teacher-forced rows with the 10% share; every
@@ -179,6 +183,25 @@ Phases, each printing one JSON line:
                   params' change from step 0 included; rank 0 saves and
                   a one-rank ``elastic.resume`` restores params and
                   optimizer state bit for bit.
+26. lm_tp_serve  — Megatron tensor parallelism of LM serving on 2 model
+                  ranks sharing the card (gloo, host-staged): Qwen2.5-14B
+                  at full width cut to 8 of 48 layers (20 q / 4 kv heads
+                  a rank) and Qwen3-MoE-30B-A3B cut to 4 (64 experts and
+                  16 q / 2 kv heads a rank, the EP shard_map dispatch for
+                  prefill), bf16, each rank its blocks of the seeded
+                  params, 16 requests of 512 tokens through the dense ring
+                  engine (8 admitted a step, caps of 32): the ranks'
+                  responses equal, each rank's flash launches = layers x
+                  admission steps; 8 prompts and 24 decode steps
+                  teacher-forced against the one-process run of the same
+                  params on the card (lm_serve's rule; MoE dropless on
+                  both sides, the ranks at capacity factor 4 and the one
+                  process at E/k, and failing if either drops; the
+                  expert-set agreement reported); each
+                  model at 2 layers in f32 against the one-process
+                  f32 run within 1e-5 of each value's scale (logits and
+                  ring caches). The one-process run comes first, its
+                  weights freed before the ranks start.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch raises and exits non-zero before the last line. Without a
@@ -265,8 +288,8 @@ MERCI_RTOL, MERCI_ATOL = 1e-3, 1e-4  # tests/test_dlrm.py
 # qwen2_5_14b.py: 48 layers, d_model 5120, 40 q / 8 kv heads, hd 128,
 # d_ff 13824, vocab 152064, bf16), random weights from the seed
 LM_ARCH = "qwen2.5-14b"
-LM_LAYERS = 16  # lm_serve cut from 48 (widths kept): 24 in PR 27, 16 in
-# PR 28 for the multi-rank phases
+LM_LAYERS = 12  # lm_serve cut from 48 (widths kept), to make room for the
+# multi-rank phases within the script's time limit
 LM_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=128,
                  slots=32, admit_per_step=8, paged=True, page_size=16)
 LM_REQUESTS = 96
@@ -282,7 +305,7 @@ LM_LONG = (4, 16384)
 # (G = 8) in lm_kernels
 LM_MOE_ARCH = "qwen3-moe-30b-a3b"
 LM_MOE_REQUESTS = 48  # cut from lm_serve's 96 to keep the script's time
-LM_MOE_LAYERS = 16  # cut from 48 (widths kept): 24 in PR 24, 16 in PR 28
+LM_MOE_LAYERS = 12  # cut from 48 (widths kept) for the script's time
 LM_MOE_HEADS = (32, 4)
 # the other four families, each at full width and depth in bf16 with
 # random weights from the seed (src/repro_torch/configs/): Qwen2-VL-7B (28
@@ -295,8 +318,9 @@ LM_MOE_HEADS = (32, 4)
 # MusicGen-large (48 layers, d 2048, 32 q / 32 kv heads of 64, 4
 # codebooks) through prefill and decode_step
 LM_VLM_ARCH, LM_VLM_REQUESTS = "qwen2-vl-7b", 32
-LM_VLM_LAYERS = 14  # cut from 28 (widths kept) in PR 28
+LM_VLM_LAYERS = 10  # cut from 28 (widths kept) for the script's time
 LM_HYBRID_ARCH = "hymba-1.5b"
+LM_HYBRID_LAYERS = 24  # cut from 32 (widths kept) for the script's time
 LM_HYBRID_ENGINE = dict(LM_ENGINE, paged=False, prompt_len=2048,
                         cache_len=1024)
 LM_SSM_ARCH = "rwkv6-1.6b"
@@ -311,7 +335,7 @@ LM_RECOVER_EVERY, LM_RECOVER_KILL = 8, 20
 LM_SSM_CPU = (4, 8)
 LM_SSM_CPU_ENGINE = dict(LM_SSM_ENGINE, slots=8, gen_len=32)
 LM_AUDIO_ARCH = "musicgen-large"
-LM_AUDIO_LAYERS = 24  # cut from 48 (widths kept) in PR 28
+LM_AUDIO_LAYERS = 16  # cut from 48 (widths kept) for the script's time
 LM_AUDIO_FRAMES = (8, 512)  # prompts x frames of 4 codebook tokens
 LM_AUDIO_STEPS = 64  # decode steps after the prefill
 LM_TF_PROMPTS = 8  # prompts of the prefill teacher-forced checks
@@ -372,6 +396,39 @@ ZERO1_M_TOL = 3e-2
 ZERO1_HALF_TOL = 1e-4
 ZERO1_DELTA_TOL = 1e-2
 ZERO1_DELTA_COS = 0.5
+# lm_tp_serve: Megatron tensor parallelism of LM serving over LM_TP_RANKS
+# model ranks sharing the card (gloo, host-staged). The dense run is
+# Qwen2.5-14B at full width cut to LM_TP_LAYERS of 48 layers (20 q / 4 kv
+# heads a rank), the MoE run Qwen3-MoE-30B-A3B cut to LM_TP_MOE_LAYERS
+# (64 experts, 16 q / 2 kv heads a rank; the EP shard_map dispatch for
+# prefill), both bf16 with the flash prefill, through the dense ring
+# engine (LM_TP_ENGINE: LM_TP_REQUESTS prompts of 512 tokens, every cap
+# 32 tokens, 8 admitted a step, the ring the whole context). Checks: the
+# ranks' responses equal; LM_TP_TF_PROMPTS prompts prefilled, then
+# LM_TP_TF_STEPS decode steps fed the one-process run's greedy tokens,
+# decided as lm_serve's check decides (the one-process run of the same
+# params on the card is the reference); each model at
+# LM_TP_F32_LAYERS layers in f32, held to the one-process f32 run by the
+# f32 LM measure (POOL_REL_TOL of each value's scale: logits each step,
+# each layer's ring caches on the rank's kv heads)
+LM_TP_RANKS = 2
+LM_TP_LAYERS, LM_TP_MOE_LAYERS, LM_TP_F32_LAYERS = 8, 4, 2
+# the MoE run is dropless on both sides, so both compute one function
+# (Qwen3-MoE itself drops nothing): the ranks' EP shard_map prefill
+# sizes a send buffer from each rank's share of the tokens and an
+# expert's buffer again at its rank, so at tp 2 with 128 experts of 8 a
+# factor of 4 holds every assignment (a send buffer needs a factor of
+# tp, an expert's buffer its square E/k); the one-process moe_apply sizes
+# an expert's buffer from all the prefill's tokens and needs E/k (16),
+# which the EP buffers cannot take (64 GB a rank). At the config's 1.25
+# the two drop different assignments, in the JAX package too: this
+# phase's first run on an NVIDIA H100 80GB HBM3 at 700.00 W decided 21
+# of 200 teacher-forced rows. The phase fails if either side drops
+LM_TP_MOE_CF = 4.0
+LM_TP_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=32,
+                    slots=16, admit_per_step=8, paged=False, cache_len=544)
+LM_TP_REQUESTS = 16
+LM_TP_TF_PROMPTS, LM_TP_TF_STEPS, LM_TP_F32_STEPS = 8, 24, 4
 # the profiled window: a copy of the engine state after this step runs the
 # next LM_PROFILE_STEPS steps under torch.profiler
 LM_PROFILE_STEP, LM_PROFILE_STEPS = 40, 16
@@ -2317,7 +2374,12 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
     s = LM_ENGINE["prompt_len"]
     cases = [("bfloat16", torch.bfloat16, 40, 8, s, 128, (0, 128)),
              ("float32", torch.float32, 40, 8, s, 128, (0, 128)),
-             ("moe_bfloat16", torch.bfloat16, h_moe, kvh_moe, s, 128, (0,))]
+             ("moe_bfloat16", torch.bfloat16, h_moe, kvh_moe, s, 128, (0,)),
+             # lm_tp_serve's ranks: each holds 1/LM_TP_RANKS of the heads
+             ("tp_dense_bfloat16", torch.bfloat16, 40 // LM_TP_RANKS,
+              8 // LM_TP_RANKS, s, 128, (0,)),
+             ("tp_moe_bfloat16", torch.bfloat16, h_moe // LM_TP_RANKS,
+              kvh_moe // LM_TP_RANKS, s, 128, (0,))]
     for name, dts, seq in (
             ("vlm", (torch.bfloat16,), s),
             ("hybrid", (torch.bfloat16, torch.float32),
@@ -2376,6 +2438,9 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
     entries["paged_attention_stats"]["vlm_shape"] = out["paged_vlm_bfloat16"]
     entries["flash_attention"]["moe_shape"] = out[
         "flash_moe_bfloat16_window0"]
+    for name in ("tp_dense", "tp_moe"):
+        entries["flash_attention"][f"{name}_shape"] = out[
+            f"flash_{name}_bfloat16_window0"]
     for name, key in (("vlm_shape", "vlm_bfloat16"),
                       ("hybrid_shape", "hybrid_bfloat16"),
                       ("hybrid_f32_shape", "hybrid_float32"),
@@ -2408,10 +2473,10 @@ def lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts, caps,
     state = lm_inject_all(torch, eng, state, ecfg, prompts, caps)
     times = []
     for step in range(len(prompts) * ecfg.gen_len):
-        torch.cuda.synchronize()
+        _sync(torch, device)
         t0 = time.perf_counter()
         state = step_fn(state)
-        torch.cuda.synchronize()
+        _sync(torch, device)
         times.append(time.perf_counter() - t0)
         if on_step is not None:
             state = on_step(step, state) or state
@@ -2537,8 +2602,8 @@ def decode_routed(model, moe, box, *args, **kw):
         return model.paged_decode_step(*args, **kw)
     route = moe._route
 
-    def recording(params, x_flat, cfg):
-        out = route(params, x_flat, cfg)
+    def recording(params, x_flat, cfg, *ctx):
+        out = route(params, x_flat, cfg, *ctx)
         box.append(out[1])
         return out
 
@@ -3107,7 +3172,8 @@ def step_summary_lm(times, adm, tokens):
 
 def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
                           fa, ref, ctx, smi):
-    """Hymba-1.5B, all 32 layers in bf16: LM_DENSE_REQUESTS requests of
+    """Hymba-1.5B, LM_HYBRID_LAYERS of its 32 in bf16: LM_DENSE_REQUESTS
+    requests of
     2,048 tokens through the dense engine with the flash prefill (the main
     path: its launch counts), then the plain engine (free-running
     agreement, reported). Teacher-forced rows of LM_TF_PROMPTS prompts
@@ -3115,7 +3181,7 @@ def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
     kernel prefill against the plain one: in bf16 every decided row
     argmax-equal and at least LM_DECIDED_MIN decided, beside the control
     of two plain versions (chunked attention against the plain flash); in
-    f32 at full width and depth the standard LM_DECIDED_SHARE. Each
+    f32 at full width and that depth the standard LM_DECIDED_SHARE. Each
     prefill's layers walked through flash against its plain version.
     Between the kernel and plain runs, the crash-and-recover cycle
     (``lm_recover_cycle``) against the kernel run. Returns (the main path's
@@ -3125,7 +3191,8 @@ def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
     start_gb = torch.cuda.memory_allocated() / 1e9
     seed = SEED + 50
     cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx,
-                                           LM_HYBRID_ARCH, seed)
+                                           LM_HYBRID_ARCH, seed,
+                                           num_layers=LM_HYBRID_LAYERS)
     ecfg = eng.LMEngineConfig(**LM_HYBRID_ENGINE, kernel_backend="auto")
     prompts, caps = lm_requests(np, cfg, LM_DENSE_REQUESTS, seed + 2,
                                 ecfg.prompt_len)
@@ -3169,7 +3236,8 @@ def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
 
     t0 = time.perf_counter()
     cfg32, p32, _, pbytes32 = lm_setup(torch, cfg_mod, model, ctx,
-                                       LM_HYBRID_ARCH, seed, dtype="float32")
+                                       LM_HYBRID_ARCH, seed, dtype="float32",
+                                       num_layers=LM_HYBRID_LAYERS)
     fa.reset_launches()
     tf_32, walk_32 = lm_prefill_rows(
         torch, model, p32, toks, ctx, ecfg.cache_len, (cfg32, "cuda"),
@@ -4275,6 +4343,492 @@ def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# LM serving under Megatron tensor parallelism: ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _timed_collectives(coll, sync, box):
+    """Wrap the collectives the model reaches so each call's host time
+    (the stream synchronised on both sides: a staged call waits for its
+    input anyway) is added to ``box["s"]``. Returns the originals."""
+    names = ("psum", "pmax", "all_gather", "psum_scatter", "all_to_all")
+    orig = {n: getattr(coll, n) for n in names}
+
+    def wrap(fn):
+        def timed(*a, **k):
+            sync()
+            t = time.perf_counter()
+            y = fn(*a, **k)
+            sync()
+            box["s"] += time.perf_counter() - t
+            return y
+        return timed
+
+    for n, fn in orig.items():
+        setattr(coll, n, wrap(fn))
+    return orig
+
+
+def _recording_routes(moe, box):
+    """Wrap ``moe._route_raw`` so each decode-sized call (``box["rows"]``
+    tokens) appends its expert ids to ``box["ids"]``. Returns the
+    original."""
+    orig = moe._route_raw
+
+    def recording(params, x_flat, cfg):
+        out = orig(params, x_flat, cfg)
+        if x_flat.shape[0] == box["rows"]:
+            box["ids"].append(out[1].cpu())
+        return out
+
+    moe._route_raw = recording
+    return orig
+
+
+def _recording_loads(moe, loads):
+    """Wrap ``moe._route_raw`` so each prefill-sized call (a prompt's
+    tokens or more) appends (its tokens, each expert's assignments) to
+    ``loads``. Returns the original."""
+    orig = moe._route_raw
+
+    def recording(params, x_flat, cfg):
+        out = orig(params, x_flat, cfg)
+        if x_flat.shape[0] >= LM_TP_ENGINE["prompt_len"]:
+            n = out[1].flatten().bincount(minlength=cfg.num_experts)
+            loads.append((x_flat.shape[0], n.cpu().numpy()))
+        return out
+
+    moe._route_raw = recording
+    return orig
+
+
+def moe_drops(np, moe, cfg, loads):
+    """The assignments the one-process prefills dropped, from their
+    recorded ``loads``: past each expert's ``moe._capacity`` of the
+    prefill's tokens, as ``moe.moe_apply`` sizes it."""
+    cap = [moe._capacity(t, cfg, cfg.num_experts) for t, _ in loads]
+    return {"prefills": len(loads), "capacity": min(cap),
+            "max_expert_load": max(int(n.max()) for _, n in loads),
+            "assignments": sum(int(n.sum()) for _, n in loads),
+            "dropped": sum(int(np.clip(n - c, 0, None).sum())
+                           for (_, n), c in zip(loads, cap))}
+
+
+def ep_drops(np, moe, cfg, ranks_loads):
+    """The assignments the ranks' EP shard_map prefills dropped, from each
+    rank's recorded loads (the same prefills in the same order on every
+    rank), with the capacities ``moe.moe_apply_ep_shardmap`` takes: a
+    rank's assignments to each destination rank past its send capacity,
+    and all ranks' assignments to an expert past its buffer's."""
+    tp = len(ranks_loads)
+    e_loc = cfg.num_experts // tp
+    out = {"prefills": len(ranks_loads[0]), "dropped_sending": 0,
+           "dropped_at_experts": 0, "max_expert_load": 0}
+    for calls in zip(*ranks_loads):
+        cap_s = moe._capacity(calls[0][0], cfg, tp)
+        cap2 = moe._capacity(tp * cap_s, cfg.replace(num_experts_per_tok=1),
+                             e_loc)
+        for _, n in calls:
+            out["dropped_sending"] += int(np.clip(
+                n.reshape(tp, e_loc).sum(1) - cap_s, 0, None).sum())
+        n = sum(n for _, n in calls)
+        out["dropped_at_experts"] += int(np.clip(n - cap2, 0, None).sum())
+        out["max_expert_load"] = max(out["max_expert_load"], int(n.max()))
+        out.update(send_capacity=cap_s, expert_capacity=cap2)
+    return out
+
+
+def lm_tp_requests(np, cfg, seed):
+    """The engine's LM_TP_REQUESTS prompts (caps all gen_len) and the
+    teacher-forced prompts."""
+    rng = np.random.default_rng(seed)
+    n, s = LM_TP_REQUESTS, LM_TP_ENGINE["prompt_len"]
+    prompts = rng.integers(1, cfg.vocab_size, (n, s)).astype(np.int32)
+    caps = np.full(n, LM_TP_ENGINE["gen_len"], np.int32)
+    tf = rng.integers(1, cfg.vocab_size, (LM_TP_TF_PROMPTS, s))
+    return prompts, caps, tf.astype(np.int32)
+
+
+def _sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def lm_tp_tf_run(torch, model, moe, cfg, ctx, params, prompts, tokens,
+                 steps=LM_TP_TF_STEPS, routes=None, dev="cuda"):
+    """The teacher-forced rows: prefill ``prompts`` (flash), then one
+    decode step a row of ``tokens`` (or, with ``tokens`` None, ``steps``
+    steps each fed the previous logits' argmax). Returns (the logits of
+    each step on the host, the tokens fed, the final decode state); with
+    ``routes`` (a list) the decode steps' expert ids are appended to it,
+    a list of steps for each layer."""
+    b, s = prompts.shape
+    n = len(tokens) if tokens is not None else steps
+    st = model.make_decode_state(cfg, ctx, b, s + n, dev)
+    st, lg = model.prefill(params, torch.from_numpy(prompts).to(dev), st, cfg,
+                           ctx, backend="cuda" if dev == "cuda" else "ref")
+    logits, fed = [lg.cpu()], []
+    box = {"rows": b, "ids": []}
+    orig = _recording_routes(moe, box) if routes is not None else None
+    try:
+        for i in range(n):
+            tok = lg.argmax(-1).to(torch.int32) if tokens is None \
+                else tokens[i].to(dev)
+            fed.append(tok.cpu())
+            st, lg = model.decode_step(params, tok, st, cfg, ctx)
+            logits.append(lg.cpu())
+    finally:
+        if orig is not None:
+            moe._route_raw = orig
+    if routes is not None:
+        routes.extend(box["ids"][i::cfg.num_layers]
+                      for i in range(cfg.num_layers))
+    return logits, fed, st
+
+
+def lm_tp_rank(rank, world, spec):
+    """This rank of a (1, world) ("data", "model") mesh on the card: its
+    blocks of the seeded params (``sharding.param_blocks``), the dense
+    engine's run over the requests, the teacher-forced rows against the
+    one-process reference (``spec["ref"]``) and the f32 pass. The flash
+    launches of each part, step and collective times, peak memory."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import engine as eng
+    from repro_torch.core import ringbuf as rb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import model, moe
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import param_blocks
+
+    dev = spec["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    mesh = lmesh.make_test_mesh((1, world), ("data", "model"))
+    cfg = spec["cfg"]
+    ctx = lmesh.make_context(mesh, cfg)._replace(
+        ep_shardmap=spec["ep_shardmap"])
+    ref = torch.load(spec["ref"])
+    box = {"s": 0.0}
+    orig = _timed_collectives(coll, lambda: _sync(torch, dev), box)
+    out = {"rank": rank, "backend": mesh.backend, "loads": []}
+    route = _recording_loads(moe, out["loads"])
+    try:
+        t = time.perf_counter()
+        params = param_blocks(model.init_params(spec["seed"], cfg, ctx,
+                                                dev), ctx)
+        _sync(torch, dev)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        out["init_s"] = time.perf_counter() - t
+        out["params_gb"] = tree_bytes(torch, _leaves(params)) / 1e9
+        prompts, caps, tf_prompts = lm_tp_requests(np, cfg, spec["seed"] + 2)
+        # the engine over the requests; each step's collective time,
+        # calls and bytes, and the prompts it admitted
+        ecfg = eng.LMEngineConfig(**LM_TP_ENGINE, kernel_backend="auto")
+        steps, popped = [], [0]
+
+        def on_step(step, state):
+            head = int(state.req.head.sum())
+            steps.append({"coll_s": box["s"], "calls": coll.stats["calls"],
+                          "bytes": coll.stats["bytes"],
+                          "admitted": head - popped[0]})
+            popped[0] = head
+            coll.reset_stats()
+            box["s"] = 0.0
+
+        coll.reset_stats()
+        box["s"] = 0.0
+        fa.reset_launches()
+        state, times = lm_serve_run(torch, eng, cfg, ctx, params, ecfg,
+                                    prompts, caps, on_step, dev)
+        out["launches"] = dict(fa.launches)
+        for row, s in zip(steps, times):
+            row["s"] = s
+        out["steps"] = steps
+        out["responses"] = lm_responses(np, rb, state, caps,
+                                        ecfg.num_queues)
+        del state
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+            if dev == "cuda" else None
+
+        fa.reset_launches()
+        routes = [] if cfg.is_moe else None
+        logits, _, _ = lm_tp_tf_run(torch, model, moe, cfg, ctx, params,
+                                    tf_prompts, ref["tf_tokens"],
+                                    routes=routes, dev=dev)
+        out["tf_launches"] = dict(fa.launches)
+        digest = hashlib.sha1()
+        parts = []
+        for a, b in zip(logits, ref["tf_logits"]):
+            digest.update(a.numpy().tobytes())
+            parts.append(row_stats(torch, a.to(dev), b.to(dev),
+                                   cfg.vocab_size))
+        out["tf"] = merge_rows(parts)
+        out["tf_digest"] = digest.hexdigest()
+        if routes is not None:
+            same = [sum(int((a.sort(-1).values == b.sort(-1).values)
+                            .all(-1).sum()) for a, b in zip(got, want))
+                    for got, want in zip(routes, ref["routes"])]
+            n = sum(int(a.shape[0]) for a in ref["routes"][0])
+            out["tf"]["expert_sets"] = n * cfg.num_layers
+            out["tf"]["expert_sets_equal_share"] = sum(same) / (
+                n * cfg.num_layers)
+            out["tf"]["expert_sets_equal_share_by_layer"] = [
+                x / n for x in same]
+        del params
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        out["f32"] = lm_tp_f32_rank(torch, model, moe, fa, ctx, spec, ref,
+                                    tf_prompts)
+    finally:
+        moe._route_raw = route
+        for n, fn in orig.items():
+            setattr(coll, n, fn)
+    return out
+
+
+def lm_tp_f32_rank(torch, model, moe, fa, ctx, spec, ref, prompts):
+    """The f32 pass on this rank: its blocks of the f32 params, the
+    prefill and LM_TP_F32_STEPS steps fed the reference's tokens; each
+    step's logits and each layer's ring caches (its kv heads) against
+    the one-process run's, max|diff| over max|value|."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import param_blocks
+
+    cfg, dev = spec["cfg_f32"], spec["device"]
+    params = param_blocks(model.init_params(spec["seed"] + 1, cfg, ctx,
+                                            dev), ctx)
+    fa.reset_launches()
+    logits, _, st = lm_tp_tf_run(torch, model, moe, cfg, ctx, params,
+                                 prompts, ref["f32_tokens"], dev=dev)
+    rel = [float((a - b).abs().max() / b.abs().max())
+           for a, b in zip(logits, ref["f32_logits"])]
+    r, tp = coll.model_rank(ctx), ctx.tp
+    caches = {}
+    for f in ("k", "v"):
+        got = st.layers[f].cpu()
+        want = ref["f32_" + f]
+        kv = want.shape[3] // tp
+        want = want[:, :, :, r * kv:(r + 1) * kv]
+        caches[f] = [float((got[i] - want[i]).abs().max()
+                           / want[i].abs().max()) for i in range(len(want))]
+    return {"logits_rel_diff": rel, "caches_rel_diff": caches,
+            "launches": dict(fa.launches),
+            "within_tolerance": max(rel + caches["k"] + caches["v"])
+            <= POOL_REL_TOL}
+
+
+def lm_tp_reference(torch, np, eng, rb, model, moe, fa, cfg, seed, path,
+                    cfg_f32, dev="cuda"):
+    """The one-process run on the card, for the ranks to be held against:
+    the dense engine over the same requests (its responses, step times
+    and flash launches), the teacher-forced rows (greedy from its own
+    logits; with MoE the decode steps' expert ids) and the f32 pass at
+    ``cfg_f32``; saved to ``path`` on the host, the weights freed."""
+    from repro_torch.parallel.sharding import local_context
+
+    ctx = local_context()
+    params = model.init_params(seed, cfg, ctx, dev)
+    prompts, caps, tf_prompts = lm_tp_requests(np, cfg, seed + 2)
+    loads = []
+    route = _recording_loads(moe, loads)
+    try:
+        state, times = lm_serve_run(
+            torch, eng, cfg, ctx, params,
+            eng.LMEngineConfig(**LM_TP_ENGINE, kernel_backend="auto"),
+            prompts, caps, device=dev)
+        resp = lm_responses(np, rb, state, caps, LM_TP_ENGINE["num_queues"])
+        del state
+        routes = [] if cfg.is_moe else None
+        logits, fed, _ = lm_tp_tf_run(torch, model, moe, cfg, ctx, params,
+                                      tf_prompts, None, routes=routes,
+                                      dev=dev)
+    finally:
+        moe._route_raw = route
+    ref = {"tf_logits": logits, "tf_tokens": fed, "routes": routes}
+    del params
+    params = model.init_params(seed + 1, cfg_f32, ctx, dev)
+    logits, fed, st = lm_tp_tf_run(torch, model, moe, cfg_f32, ctx, params,
+                                   tf_prompts, None, steps=LM_TP_F32_STEPS,
+                                   dev=dev)
+    ref.update(f32_logits=logits, f32_tokens=fed,
+               f32_k=st.layers["k"].cpu(), f32_v=st.layers["v"].cpu())
+    del params, st
+    torch.save(ref, path)
+    drops = moe_drops(np, moe, cfg, loads) if loads else None
+    return resp, times, drops
+
+
+def _tp_step_summary(steps):
+    """Medians of the decode steps (no prompt admitted) and of the
+    admission steps: host ms, collective ms, calls and bytes."""
+    out = {}
+    for kind, rows in (("decode", [r for r in steps if not r["admitted"]]),
+                       ("admission", [r for r in steps if r["admitted"]])):
+        out[kind] = {"steps": len(rows)}
+        for k in ("s", "coll_s", "calls", "bytes"):
+            vals = [r[k] for r in rows] or [0]
+            scale = 1e3 if k in ("s", "coll_s") else 1
+            name = {"s": "step_ms_median", "coll_s": "collective_ms_median",
+                    "calls": "collective_calls_median",
+                    "bytes": "collective_bytes_median"}[k]
+            out[kind][name] = statistics.median(vals) * scale
+    return out
+
+
+def phase_lm_tp_serve(torch, np, eng, rb, cfg_mod, model, moe, fa, coll, smi,
+                      device="cuda"):
+    """Qwen2.5-14B (LM_TP_LAYERS layers) and Qwen3-MoE-30B-A3B
+    (LM_TP_MOE_LAYERS) in bf16 over LM_TP_RANKS model ranks sharing the
+    card (gloo, host-staged). For each: the one-process run first
+    (:func:`lm_tp_reference`, its weights freed), then the ranks
+    (:func:`lm_tp_rank`). Fails unless the ranks' responses and
+    teacher-forced logits are equal, the teacher-forced rows pass
+    lm_serve's rule, each rank's engine run launched flash
+    layers x admission steps times, and the f32 pass holds. Returns the
+    line, with each rank's flash launches."""
+    import gc
+
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.parallel.sharding import Mesh, ParallelContext
+
+    root = tempfile.mkdtemp(prefix="orca-tp-")
+    out = {"phase": "lm_tp_serve", "nvidia_smi": smi, "ranks": LM_TP_RANKS,
+           "transport": "gloo over loopback TCP; CUDA tensors staged "
+                        "through page-locked host buffers (ranks share "
+                        "one card)", "engine": LM_TP_ENGINE,
+           "requests": LM_TP_REQUESTS, "runs": {}}
+    failed = []
+    t_phase = time.perf_counter()
+    try:
+        for name, arch, layers, seed in (
+                ("dense", LM_ARCH, LM_TP_LAYERS, SEED + 90),
+                ("moe", LM_MOE_ARCH, LM_TP_MOE_LAYERS, SEED + 95)):
+            t0 = time.perf_counter()
+            cfg = cfg_mod.get_config(arch).replace(
+                use_pallas_flash=True, num_layers=layers)
+            if cfg.is_moe:
+                cfg = cfg.replace(capacity_factor=LM_TP_MOE_CF)
+            tp_ctx = ParallelContext(
+                mesh=Mesh((1, LM_TP_RANKS), ("data", "model")))
+            plan = tf_mod.plan_for(cfg, tp_ctx)
+            # no head padding at this tp: the one-process run draws the
+            # same params
+            assert (plan.hp, plan.kv_phys) == (cfg.num_heads,
+                                               cfg.num_kv_heads), plan
+            f32 = dict(num_layers=LM_TP_F32_LAYERS, dtype="float32")
+            cfg_f32 = cfg.replace(**f32)
+            # one process: dropless at E/k (an expert's buffer the
+            # prefill's tokens); the same params at any factor
+            ref_cfg = cfg.replace(capacity_factor=cfg.num_experts
+                                  / cfg.num_experts_per_tok) \
+                if cfg.is_moe else cfg
+            path = os.path.join(root, f"{name}.pt")
+            torch.backends.cuda.matmul.allow_tf32 = False
+            resp_1, times_1, drops = lm_tp_reference(
+                torch, np, eng, rb, model, moe, fa, ref_cfg, seed, path,
+                ref_cfg.replace(**f32), device)
+            ref_s = time.perf_counter() - t0
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            spec = {"cfg": cfg, "cfg_f32": cfg_f32, "seed": seed,
+                    "ref": path, "ep_shardmap": cfg.is_moe,
+                    "device": device}
+            t1 = time.perf_counter()
+            ranks = coll.launch(lm_tp_rank, LM_TP_RANKS,
+                                backend=RANK_BACKEND, args=(spec,),
+                                timeout=RANK_TIMEOUT)
+            ranks_s = time.perf_counter() - t1
+            r0 = ranks[0]
+            admissions = sum(1 for r in r0["steps"] if r["admitted"])
+            want = cfg.num_layers * admissions
+            tokens = sum(len(v) for v in r0["responses"].values())
+            same_resp = all(
+                r["responses"].keys() == r0["responses"].keys()
+                and all(np.array_equal(r["responses"][k], v)
+                        for k, v in r0["responses"].items()) for r in ranks)
+            agree = sum(int((r0["responses"][k] == v).sum())
+                        for k, v in resp_1.items())
+            tp_sum = sum(r["s"] for r in r0["steps"])
+            run = {"arch": arch, "layers": layers, "dtype": cfg.dtype,
+                   "heads_per_rank": (plan.hp // LM_TP_RANKS,
+                                      plan.kv_phys // LM_TP_RANKS),
+                   "experts_per_rank": cfg.num_experts // LM_TP_RANKS
+                   if cfg.is_moe else None,
+                   "ep_shardmap": spec["ep_shardmap"],
+                   "params_gb_per_rank": r0["params_gb"],
+                   "init_s_by_rank": [r["init_s"] for r in ranks],
+                   "reference_s": ref_s, "ranks_s": ranks_s,
+                   "steps": len(r0["steps"]), "admission_steps": admissions,
+                   "generated_tokens": tokens,
+                   "tp": _tp_step_summary(r0["steps"]),
+                   "tp_tokens_per_s": tokens / tp_sum,
+                   "one_process": {
+                       "step_ms_median": statistics.median(times_1) * 1e3,
+                       "tokens_per_s": tokens / sum(times_1)},
+                   "responses_equal_across_ranks": same_resp,
+                   "token_agreement_vs_one_process": agree / max(tokens, 1),
+                   "teacher_forced": r0["tf"],
+                   "tf_logits_equal_across_ranks": len(
+                       {r["tf_digest"] for r in ranks}) == 1,
+                   "flash_launches_by_rank": [
+                       r["launches"].get("flash_attention", 0)
+                       for r in ranks],
+                   "flash_launches_expected": want,
+                   "tf_flash_launches_by_rank": [
+                       r["tf_launches"].get("flash_attention", 0)
+                       for r in ranks],
+                   "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+                   "backend": r0["backend"]}
+            if cfg.is_moe:
+                run["capacity_factor"] = {
+                    "ranks": cfg.capacity_factor,
+                    "one_process": ref_cfg.capacity_factor}
+                run["one_process_prefill_drops"] = drops
+                run["ranks_prefill_drops"] = ep_drops(
+                    np, moe, cfg, [r["loads"] for r in ranks])
+            run["f32"] = {"layers": LM_TP_F32_LAYERS,
+                          "steps": LM_TP_F32_STEPS,
+                          "tolerance": "max|diff| <= 1e-5 x max|value| "
+                                       "(logits a step, caches a layer)",
+                          "by_rank": [r["f32"] for r in ranks]}
+            run["seconds"] = time.perf_counter() - t0
+            out["runs"][name] = run
+            why = decided_failure(r0["tf"], LM_DECIDED_SHARE)
+            if not (same_resp and run["tf_logits_equal_across_ranks"]):
+                failed.append(f"{name}: the ranks differ")
+            if why:
+                failed.append(f"{name}: {why}")
+            if cfg.is_moe and (drops["dropped"] or any(
+                    run["ranks_prefill_drops"][k] for k in
+                    ("dropped_sending", "dropped_at_experts"))):
+                failed.append(f"{name}: a prefill dropped assignments "
+                              f"(one process {drops['dropped']}, ranks "
+                              f"{run['ranks_prefill_drops']})")
+            if run["flash_launches_by_rank"] != [want] * LM_TP_RANKS:
+                failed.append(f"{name}: flash launches "
+                              f"{run['flash_launches_by_rank']} != {want}")
+            if not all(r["f32"]["within_tolerance"] for r in ranks):
+                failed.append(f"{name}: the f32 pass is outside tolerance")
+            del ranks
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if failed:
+        raise AssertionError(f"lm_tp_serve: {'; '.join(failed)}")
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -4413,6 +4967,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_zero1_train(torch, np, lm_configs, model, coll, smi)
+    # tensor-parallel LM serving: 2 model ranks on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_lm_tp_serve(torch, np, eng, rb, lm_configs, model, moe, fa,
+                           coll, smi)
     for name, e in lm_entries.items():
         e["launches"] = (launches[name] + crash["launches"][name]
                          + moe_launches[name] + vlm_launches[name]
@@ -4427,6 +4986,11 @@ def main() -> int:
     flash["hybrid_f32_shape"]["launches"] = 0
     flash["hybrid_f32_shape"]["check_launches"] = hybrid_f32
     flash["audio_shape"]["launches"] = audio_launches["flash_attention"]
+    # each tensor-parallel rank's engine runs at its own head count
+    for name in ("dense", "moe"):
+        n = sum(tp["runs"][name]["flash_launches_by_rank"])
+        flash[f"tp_{name}_shape"]["launches"] = n
+        flash["launches"] += n
     entries.update(lm_entries)
 
     dead = [k for k, e in entries.items()

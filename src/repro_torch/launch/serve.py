@@ -49,7 +49,18 @@ from repro_torch.parallel.sharding import local_context
 def engine_step(cfg, ctx, ecfg: eng.LMEngineConfig, params, device="cuda"):
     """``step(state) -> state`` of either decode substrate. The paged step
     updates the page pool in place, so a state passed to ``step`` must not
-    be used again."""
+    be used again.
+
+    Under a tensor-parallel context (a running mesh whose model axis
+    splits the model; ``params`` this rank's blocks) the dense step runs
+    on every rank: each holds a replica of the engine state (rings,
+    slots, positions) and its kv heads of the decode state, and the
+    logits it reads are whole, so every rank emits the same responses.
+    Data-parallel serving (the slots' rows split over data ranks) and the
+    paged step under a mesh are not ported."""
+    if ctx.mesh is not None and ctx.dp > 1:
+        raise NotImplementedError("the LM engine under a mesh runs on the "
+                                  "model axis only (data axes of size 1)")
     if ecfg.paged:
         def step(s):
             return eng.lm_engine_step(s, ecfg, cfg, ctx, params)

@@ -8,6 +8,15 @@ equals the logical unpadded model; replicated kv heads are tied at init
 and their gradients re-tied every step (:func:`tie_kv_grads`). Tensors
 keep the JAX package's layouts: activations (B, S, H, hd), caches
 (B, Smax, KV, hd), page pools (NP, PS, KV, hd).
+
+Under Megatron tensor parallelism each rank holds ``plan.hp / tp`` query
+heads and ``plan.kv_phys / tp`` stored kv heads (``wq``/``wk``/``wv`` and
+the biases split on their head axis, ``wo`` on its first): rank r's q
+head i feeds its kv head ``i // (hp / kv_phys)``, the same grouping as
+the whole layout, so every function below runs unchanged on a rank's
+heads; :func:`out_proj` masks the rank's slots and sums the partial
+products over the model axis. When ``kv < tp`` each rank's kv heads are
+replicas (``plan.repl``) of the logical ones its q heads read.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
     apply_mrope, apply_rope, dtype_of, matmul, normal,
 )
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import HeadPlan
 
 F32 = torch.float32
@@ -121,14 +131,26 @@ def qkv(params, x, cfg: ModelConfig, plan: HeadPlan, positions):
     return q.to(dt), k.to(dt), v.to(dt)
 
 
-def out_proj(params, attn_out, plan: HeadPlan):
-    """attn_out: (B, S, hp, hd) -> (B, S, D), masking padded q slots."""
-    mask = q_head_mask(plan, attn_out.device).to(attn_out.dtype)
-    attn_out = attn_out * mask[None, None, :, None]
+def local_q_mask(plan: HeadPlan, heads: int, ctx, device):
+    """The slice of :func:`q_head_mask` over this rank's ``heads`` query
+    slots: the whole mask at tp 1, rank r's ``plan.hp / tp`` slots from
+    ``r * plan.hp / tp`` under tensor parallelism."""
+    lo = coll.model_rank(ctx) * heads
+    return q_head_mask(plan, device)[lo:lo + heads]
+
+
+def out_proj(params, attn_out, plan: HeadPlan, ctx=None, seq_dim=None):
+    """attn_out: (B, S, hp, hd) -> (B, S, D), masking padded q slots.
+    Under tensor parallelism ``attn_out`` and ``wo`` hold this rank's
+    ``hp / tp`` heads, and the f32 partial product is summed over the
+    model axis before the cast (with ``seq_dim``, reduce-scattered along
+    the sequence)."""
     b, s, h, k = attn_out.shape
+    mask = local_q_mask(plan, h, ctx, attn_out.device).to(attn_out.dtype)
+    attn_out = attn_out * mask[None, None, :, None]
     wo = params["wo"]
     y = matmul(attn_out.reshape(b, s, h * k), wo.reshape(h * k, wo.shape[-1]))
-    return y.to(attn_out.dtype)
+    return coll.model_reduce(y, ctx, seq_dim).to(attn_out.dtype)
 
 
 # ---------------------------------------------------------------------------

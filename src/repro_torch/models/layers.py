@@ -6,6 +6,13 @@ Matmuls return f32 whatever the storage dtype, as JAX's
 ``preferred_element_type=f32`` does: a bf16 product rounded to bf16 would
 change every later layer. Under autograd, a bf16 product on the card goes
 through :class:`MatmulF32`, whose backward is JAX's.
+
+Under Megatron tensor parallelism (a ``ParallelContext`` whose model axis
+has more than one rank; each rank holds its blocks, ``sharding.
+param_blocks``) the MLP's ``w_gate``/``w_in`` are split by columns and
+``w_out`` by rows, whose f32 partial product is summed over the model
+axis before the cast, as JAX's GSPMD sums the ``preferred_element_type``
+output; the embedding and the head are split over the vocab.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import collectives as coll
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -121,12 +129,16 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None):
     }
 
 
-def mlp_apply(params, x, act: str = "silu"):
+def mlp_apply(params, x, act: str = "silu", ctx=None, seq_dim=None):
+    """The gated MLP. Under tensor parallelism ``params`` hold this rank's
+    ``d_ff`` block and the ``w_out`` partials meet in a sum over the model
+    axis (with ``seq_dim``, its reduce-scatter along the sequence)."""
     dt = x.dtype
     g = matmul(x, params["w_gate"])
     h = matmul(x, params["w_in"])
     y = act_fn(act)(g) * h
-    return matmul(y.to(dt), params["w_out"]).to(dt)
+    y = matmul(y.to(dt), params["w_out"])
+    return coll.model_reduce(y, ctx, seq_dim).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -184,13 +196,22 @@ def embed_init(gen, cfg: ModelConfig, device):
         dtype_of(cfg.dtype))}
 
 
-def embed_apply(params, tokens, cfg: ModelConfig):
-    """tokens: (B, S) int32 or (B, S, K) for codebook archs -> (B, S, D)."""
+def embed_apply(params, tokens, cfg: ModelConfig, ctx=None):
+    """tokens: (B, S) int32 or (B, S, K) for codebook archs -> (B, S, D).
+    Vocab-parallel under tensor parallelism: ``params["tok"]`` holds this
+    rank's rows of the table; ids outside them give zero rows, and the
+    sum over the model axis leaves each token its own row."""
     tok = params["tok"]
     if cfg.num_codebooks:
         return sum(tok[k][tokens[..., k].long()]
                    for k in range(cfg.num_codebooks))
-    return tok[tokens.long()]
+    if not coll.tensor_parallel(ctx):
+        return tok[tokens.long()]
+    v_loc = tok.shape[0]
+    ids = tokens.long() - coll.model_rank(ctx) * v_loc
+    inside = (ids >= 0) & (ids < v_loc)
+    rows = torch.where(inside[..., None], tok[ids.clamp(0, v_loc - 1)], 0)
+    return coll.model_psum(rows, ctx)
 
 
 def lm_head_init(gen, cfg: ModelConfig, device):
@@ -200,9 +221,12 @@ def lm_head_init(gen, cfg: ModelConfig, device):
         dtype_of(cfg.dtype))}
 
 
-def lm_head_apply(params, x, cfg: ModelConfig, embed_params=None):
+def lm_head_apply(params, x, cfg: ModelConfig, embed_params=None, ctx=None):
     """x: (B, S, D) -> f32 logits over the padded vocab with dead columns
-    set to -1e30; shape (B, S, Vp) or (B, S, K, Vp)."""
+    set to -1e30; shape (B, S, Vp) or (B, S, K, Vp). Under tensor
+    parallelism the rank's vocab columns only, (B, S, Vp / tp): the dead
+    columns are those whose global index is past the vocab
+    (``collectives.model_gather`` on the last dim makes them whole)."""
     if cfg.tie_embeddings:
         logits = matmul(x, embed_params["tok"].T)
     elif cfg.num_codebooks:
@@ -211,5 +235,7 @@ def lm_head_apply(params, x, cfg: ModelConfig, embed_params=None):
     else:
         logits = matmul(x, params["w"])
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = NEG_INF
+        first = coll.model_rank(ctx) * logits.shape[-1] \
+            if coll.tensor_parallel(ctx) else 0
+        logits[..., max(cfg.vocab_size - first, 0):] = NEG_INF
     return logits

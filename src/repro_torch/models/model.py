@@ -4,7 +4,20 @@ families. The vlm family's M-RoPE positions are the text stub
 (t = h = w) and its media embeddings are added at the first positions
 of a prefill or a training forward; the audio family takes
 (B, S, K) codebook frames and returns (B, K, V) logits a step. The
-recurrent families (ssm, hybrid) decode on the dense path only."""
+recurrent families (ssm, hybrid) decode on the dense path only.
+
+Under a running mesh (``launch.mesh``) every function here is per rank,
+as JAX's GSPMD step is per device: ``params`` are this rank's blocks
+(``sharding.param_blocks``), tokens and states its rows of the batch
+(split over the data axes when they divide it, ``batch_specs``), and the
+decode state holds its kv heads (:func:`decode_state_specs`). Megatron
+tensor parallelism over the model axis runs the dense and MoE families'
+forward, prefill and ring-cache decode: the embedding and the head are
+vocab-parallel, and the logits returned are whole (the vocab shards
+gathered), so a greedy token is the whole row's argmax and its ties go
+to the lowest global index, as on one device. :func:`loss_fn` takes a
+vocab-parallel log-sum-exp and gold logit. Forward only: training at
+tp > 1, and the paged path under a mesh, are refused."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
@@ -18,6 +31,7 @@ from repro_torch.models.layers import (
     dtype_of, embed_apply, embed_init, lm_head_apply, lm_head_init, rmsnorm,
     rmsnorm_init,
 )
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import P, ParallelContext, shard
 
 I32 = torch.int32
@@ -75,19 +89,26 @@ def _step_input(params, tokens, cfg, ctx):
     """One decoding token a sequence, (B,) or codebooks (B, K), embedded
     as (B, 1, D)."""
     tok = tokens[:, None] if tokens.dim() == 1 else tokens[:, None, :]
-    return shard(embed_apply(params["embed"], tok, cfg), ctx)
+    return shard(embed_apply(params["embed"], tok, cfg, ctx), ctx)
 
 
-def _head(params, h, cfg):
+def _head_local(params, h, cfg, ctx):
+    """The final norm and the head: f32 logits, this rank's vocab columns
+    under tensor parallelism."""
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
     return lm_head_apply(params.get("lm_head"), h, cfg,
-                         embed_params=params["embed"])
+                         embed_params=params["embed"], ctx=ctx)
 
 
-def _embed(params, tokens, cfg, media):
+def _head(params, h, cfg, ctx):
+    """Whole-vocab f32 logits (the vocab shards gathered)."""
+    return coll.model_gather(_head_local(params, h, cfg, ctx), ctx, -1)
+
+
+def _embed(params, tokens, cfg, media, ctx=None):
     """Token (or codebook) embeddings, with a vlm's ``media`` (B, M, D)
     added at the first M positions."""
-    h = embed_apply(params["embed"], tokens, cfg)
+    h = embed_apply(params["embed"], tokens, cfg, ctx)
     if cfg.media_tokens and media is not None:
         m = media.shape[1]
         h = torch.cat([h[:, :m] + media.to(h.dtype), h[:, m:]], dim=1)
@@ -103,11 +124,17 @@ def forward(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
     """The stateless forward over tokens (B, S) or codebook frames
     (B, S, K). Returns (f32 logits (B, S, V) or (B, S, K, V), the MoE aux
     loss summed over the layers)."""
+    logits, aux = _forward_local(params, tokens, cfg, ctx, media, chunk)
+    return coll.model_gather(logits, ctx, -1), aux
+
+
+def _forward_local(params, tokens, cfg, ctx, media, chunk):
+    """:func:`forward` with this rank's vocab columns of the logits."""
     plan = tf.plan_for(cfg, ctx)
-    h = shard(_embed(params, tokens, cfg, media), ctx)
+    h = shard(_embed(params, tokens, cfg, media, ctx), ctx)
     h, aux = tf.stack_train(params["layers"], h, cfg, plan, ctx,
                             _positions_for(cfg, tokens), chunk=chunk)
-    return _head(params, h, cfg), aux
+    return _head_local(params, h, cfg, ctx), aux
 
 
 def loss_fn(params, batch, cfg: ModelConfig, ctx: ParallelContext, *,
@@ -115,12 +142,27 @@ def loss_fn(params, batch, cfg: ModelConfig, ctx: ParallelContext, *,
     """batch: {"tokens", "labels"[, "media"]} -> (loss, {"ce", "aux"}):
     the mean next-token cross entropy plus 0.01 x the aux loss. The gold
     logit is a gather, which is the JAX package's one-hot sum (it adds
-    only zeros to the one value) without a (B, S, V) mask."""
-    logits, aux = forward(params, batch["tokens"], cfg, ctx,
-                          media=batch.get("media"), chunk=chunk)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        batch["labels"].long()[..., None])[..., 0]
+    only zeros to the one value) without a (B, S, V) mask. Under a mesh
+    the mean is over this rank's rows (a caller over data ranks averages
+    them, as ZeRO-1 does); under tensor parallelism the log-sum-exp and
+    the gold logit are vocab-parallel (a max and two sums over the model
+    axis), and the logits are never gathered."""
+    logits, aux = _forward_local(params, batch["tokens"], cfg, ctx,
+                                 batch.get("media"), chunk)
+    labels = batch["labels"].long()
+    if not coll.tensor_parallel(ctx):
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        v_loc = logits.shape[-1]
+        m = coll.pmax(logits.amax(dim=-1), ctx.mesh, ctx.model_axis)
+        lse = m + torch.log(coll.model_psum(
+            torch.exp(logits - m[..., None]).sum(dim=-1), ctx))
+        ids = labels - coll.model_rank(ctx) * v_loc
+        inside = (ids >= 0) & (ids < v_loc)
+        mine = torch.gather(logits, -1,
+                            ids.clamp(0, v_loc - 1)[..., None])[..., 0]
+        gold = coll.model_psum(torch.where(inside, mine, 0.0), ctx)
     ce = torch.mean(lse - gold)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -144,9 +186,16 @@ def postprocess_grads(grads, cfg: ModelConfig, ctx: ParallelContext):
 
 def make_decode_state(cfg: ModelConfig, ctx: ParallelContext, batch: int,
                       cache_len: int, device="cuda") -> DecodeState:
+    """Zero decode state for a global ``batch``. Under a mesh it is this
+    rank's block (:func:`decode_state_specs`): its rows when the data
+    axes divide the batch, and its kv heads under tensor
+    parallelism."""
+    tf.check_tp(cfg, ctx)
     plan = tf.plan_for(cfg, ctx)
+    if _batch_axis_or_none(batch, ctx) is not None:
+        batch //= ctx.dp
     layers = tf.stack([tf.layer_state_zeros(cfg, plan, batch, cache_len,
-                                            device)
+                                            device, ctx)
                        for _ in range(cfg.num_layers)])
     return DecodeState(layers, torch.zeros((batch,), dtype=I32,
                                            device=device))
@@ -161,14 +210,14 @@ def prefill(params, tokens, state: DecodeState, cfg: ModelConfig,
     (B, V), or (B, K, V), f32); with ``all_logits`` the logits of every
     position, (B, S, V) or (B, S, K, V): the teacher-forced rows."""
     plan = tf.plan_for(cfg, ctx)
-    h = shard(_embed(params, tokens, cfg, media), ctx)
+    h = shard(_embed(params, tokens, cfg, media, ctx), ctx)
     h, new_layers = tf.stack_apply(
         params["layers"], h, cfg, plan, ctx, _positions_for(cfg, tokens),
         states=state.layers, chunk=chunk, backend=backend)
     new_state = DecodeState(new_layers, state.pos + tokens.shape[1])
     if all_logits:
-        return new_state, _head(params, h, cfg)
-    return new_state, _head(params, h[:, -1:], cfg)[:, 0]
+        return new_state, _head(params, h, cfg, ctx)
+    return new_state, _head(params, h[:, -1:], cfg, ctx)[:, 0]
 
 
 def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
@@ -181,18 +230,22 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
     h, new_layers = tf.stack_apply(
         params["layers"], h, cfg, plan, ctx,
         tf.token_positions(cfg, cur.to(I32)), states=state.layers)
-    return DecodeState(new_layers, cur + 1), _head(params, h, cfg)[:, 0]
+    return DecodeState(new_layers, cur + 1), _head(params, h, cfg, ctx)[:, 0]
 
 
 # ---------------------------------------------------------------------------
 # Serving: paged decode (the shared page pool)
 # ---------------------------------------------------------------------------
 
-def check_paged_support(cfg: ModelConfig) -> None:
+def check_paged_support(cfg: ModelConfig, ctx=None) -> None:
     """The paged path stores pages in bshd layout and walks full causal
     context; families with recurrent state, and windowed or dot-layout
-    caches, keep the dense decode path."""
+    caches, keep the dense decode path. Under a mesh it is not ported
+    (the pool's kv heads and rows per rank)."""
     tf.check_family(cfg)
+    if ctx is not None and ctx.mesh is not None and ctx.mesh.size > 1:
+        raise NotImplementedError("the paged decode path under a mesh is "
+                                  "not ported (the dense path is)")
     if cfg.attn_free or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"paged decode needs a pure-attention family, got {cfg.family}")
@@ -208,7 +261,7 @@ def make_paged_kv_config(cfg: ModelConfig, ctx: ParallelContext, *,
     """A PagedKVConfig matching this model's physical kv geometry."""
     from repro_torch.serving.kv_cache import PagedKVConfig
 
-    check_paged_support(cfg)
+    check_paged_support(cfg, ctx)
     plan = tf.plan_for(cfg, ctx)
     return PagedKVConfig(
         num_pages=num_pages, page_size=page_size,
@@ -235,7 +288,7 @@ def paged_decode_step(params, tokens, kv, pcfg, cfg: ModelConfig,
     """
     from repro_torch.serving import kv_cache as pk
 
-    check_paged_support(cfg)
+    check_paged_support(cfg, ctx)
     plan = tf.plan_for(cfg, ctx)
     b = tokens.shape[0]
     if active is None:
@@ -251,7 +304,7 @@ def paged_decode_step(params, tokens, kv, pcfg, cfg: ModelConfig,
         params["layers"], h, cfg, plan, ctx,
         tf.token_positions(cfg, cur.to(I32)),
         states={"kp": kv.k_pages, "vp": kv.v_pages}, paged=aux)
-    logits = _head(params, h, cfg)
+    logits = _head(params, h, cfg, ctx)
     kv = pk.append_token_batch(kv, pcfg, new_states["k_new"],
                                new_states["v_new"], eff)
     return kv, logits[:, 0], ok
@@ -266,14 +319,14 @@ def prefill_kv(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
     writes k/v into the pool (``kv_cache.prefill_into_pages``).
     ``capacity_tokens`` sizes the MoE capacity from that token count in
     place of B x S (the engine passes its padded admission batch's)."""
-    check_paged_support(cfg)
+    check_paged_support(cfg, ctx)
     plan = tf.plan_for(cfg, ctx)
     h = shard(embed_apply(params["embed"], tokens, cfg), ctx)
     h, kvs = tf.stack_apply(
         params["layers"], h, cfg, plan, ctx, _positions_for(cfg, tokens),
         chunk=chunk, emit_kv=True, backend=kernel_backend,
         capacity_tokens=capacity_tokens)
-    return kvs["k"], kvs["v"], _head(params, h[:, -1:], cfg)[:, 0]
+    return kvs["k"], kvs["v"], _head(params, h[:, -1:], cfg, ctx)[:, 0]
 
 
 # ---------------------------------------------------------------------------

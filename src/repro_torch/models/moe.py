@@ -8,8 +8,10 @@ in its expert's buffer in token order, and an assignment past the
 capacity is dropped. The JAX package's explicit expert-TP and all-to-all
 EP variants (``shard_map``) are :func:`moe_apply_tp_shardmap` and
 :func:`moe_apply_ep_shardmap`: per-rank functions over the collectives of
-``parallel.collectives``, not yet wired into the stack (which runs
-``moe_apply``).
+``parallel.collectives``, which the stack's ``block_apply`` takes for a
+stateless or prefill MoE block under ``ctx.ep_shardmap``, as JAX's does;
+otherwise, and for decode, it runs :func:`moe_apply`, tensor-parallel
+under a mesh as GSPMD runs it.
 
 What keeps the port equal to JAX:
 
@@ -74,8 +76,13 @@ def _route_raw(params, x_flat, cfg: ModelConfig):
     return gates, idx, me, ce
 
 
-def _route(params, x_flat, cfg: ModelConfig):
+def _route(params, x_flat, cfg: ModelConfig, ctx=None):
+    """(gates, ids, aux loss); with ``ctx`` the Switch statistics are
+    averaged over its batch axes first (the whole batch's)."""
     gates, idx, me, ce = _route_raw(params, x_flat, cfg)
+    if ctx is not None:
+        me = coll.pmean(me, ctx.mesh, ctx.batch_axes)
+        ce = coll.pmean(ce, ctx.mesh, ctx.batch_axes)
     return gates, idx, cfg.num_experts * torch.sum(me * ce)
 
 
@@ -138,17 +145,19 @@ def _bmm(a, b):
     return torch.bmm(a.float(), b.float())
 
 
-def _expert_ffn(w_gate, w_in, w_out, buf, act: str):
-    """buf: (E, C, D) -> (E, C, D), every expert's gated MLP at once."""
+def _expert_ffn(w_gate, w_in, w_out, buf, act: str, ctx=None):
+    """buf: (E, C, D) -> (E, C, D), every expert's gated MLP at once;
+    with ``ctx`` the weights are ``d_ff`` blocks and ``w_out``'s f32
+    partials are summed over the model axis before the cast."""
     g = _bmm(buf, w_gate)
     h = _bmm(buf, w_in)
     y = (act_fn(act)(g) * h).to(buf.dtype)
-    return _bmm(y, w_out).to(buf.dtype)
+    return coll.model_psum(_bmm(y, w_out), ctx).to(buf.dtype)
 
 
-def moe_apply(params, x, cfg: ModelConfig, *, no_drop: bool = False,
-              capacity_tokens: Optional[int] = None):
-    """x: (..., D) -> ((..., D), aux loss), at world size 1.
+def moe_apply(params, x, cfg: ModelConfig, ctx=None, *,
+              no_drop: bool = False, capacity_tokens: Optional[int] = None):
+    """x: (..., D) -> ((..., D), aux loss): the JAX package's GSPMD path.
 
     ``no_drop`` (decode): capacity = T, so no assignment is dropped.
     ``capacity_tokens`` sizes the capacity from that token count instead
@@ -156,17 +165,44 @@ def moe_apply(params, x, cfg: ModelConfig, *, no_drop: bool = False,
     admission batch, and passes the padded batch's count so every
     admitted assignment keeps the slot, and the keep, that the whole
     padded batch would give it (the prefix comes first in token order and
-    the dispatch sort is stable)."""
+    the dispatch sort is stable).
+
+    Under tensor parallelism (``ctx``'s model axis over more than one
+    rank; ``x`` whole on every model rank) every rank routes and
+    dispatches all of ``x``'s tokens, as GSPMD does with the router
+    replicated. With ``ctx.use_ep`` the rank holds its ``E / tp`` experts
+    (``P(model, ...)``), runs them on their buffers and combines their
+    assignments in order, and a sum over the model axis adds the ranks'
+    partial combines; else it holds every expert's ``d_ff`` block
+    (``P(None, ..., model)``), whose f32 partial products meet in a sum
+    over the model axis before the cast and the combine. At dp > 1 the
+    capacity and the dispatch positions would be the whole batch's,
+    which this rank's rows cannot give: refused unless ``no_drop``
+    (where every assignment keeps its slot whatever the batch; the
+    stack's ``ep_shardmap`` dispatch is the data-parallel prefill)."""
     shape = x.shape
     d = shape[-1]
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]
-    e, k = cfg.num_experts, cfg.num_experts_per_tok
-    dev = x.device
+    e = cfg.num_experts
+    tp = coll.tensor_parallel(ctx)
+    if tp and ctx.dp > 1 and not no_drop:
+        raise NotImplementedError(
+            "GSPMD MoE at dp > 1: the capacity and the dispatch positions "
+            "are the whole batch's (set ep_shardmap, whose per-rank "
+            "dispatch is the JAX package's data-parallel path)")
 
-    gates, idx, aux = _route(params, x_flat, cfg)
+    gates, idx, aux = _route(params, x_flat, cfg,
+                             ctx if tp and ctx.dp > 1 else None)
     cap = t if no_drop else _capacity(capacity_tokens or t, cfg, e)
-    y = _experts_local(params, x_flat, gates, idx, cap, cfg)
+    if tp and ctx.use_ep:  # this rank's experts; the partial combines summed
+        e_loc = params["w_gate"].shape[0]
+        first = coll.model_rank(ctx) * e_loc
+        y = coll.model_psum(_experts_local(
+            params, x_flat, gates, idx, cap, cfg,
+            experts=(first, first + e_loc)), ctx)
+    else:  # all experts, or every expert's d_ff block summed in the FFN
+        y = _experts_local(params, x_flat, gates, idx, cap, cfg, ctx=ctx)
     return y.to(x.dtype).reshape(shape), aux
 
 
@@ -182,28 +218,38 @@ def _combine(picked, gates, t: int, k: int):
     return y
 
 
-def _experts_local(params, x_flat, gates, idx, cap: int, cfg: ModelConfig):
+def _experts_local(params, x_flat, gates, idx, cap: int, cfg: ModelConfig,
+                   experts=None, ctx=None):
     """Dispatch ``x_flat``'s assignments to every expert's capacity buffer
     (slots in token order, past ``cap`` dropped), run the experts held in
-    ``params``, and combine: (T, D) f32."""
+    ``params``, and combine: (T, D) f32.
+
+    ``experts=(lo, hi)``: ``params`` hold experts lo..hi-1 only, so only
+    their buffers are built and run, and the combine takes only their
+    assignments (the others add zeros). ``ctx``: ``params`` hold every
+    expert's ``d_ff`` block, and the f32 output of ``w_out`` is summed
+    over the model axis before the cast to the dtype."""
     t, d = x_flat.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
+    lo, hi = experts or (0, e)
+    n = hi - lo
     dev = x_flat.device
     flat_e = idx.reshape(-1)  # (T*k,)
     pos = _dispatch_positions(flat_e, e)
-    keep = pos < cap
-    dest = torch.where(keep, flat_e * cap + pos, e * cap)  # e*cap = dropped
+    keep = (pos < cap) & (flat_e >= lo) & (flat_e < hi)
+    # the dropped (and other ranks') assignments land on the spare row
+    # n*cap, sliced off
+    dest = torch.where(keep, (flat_e - lo) * cap + pos, n * cap)
     src_token = torch.arange(t, device=dev).repeat_interleave(k)
 
-    # the dropped assignments land on the spare row e*cap, sliced off
-    buf = torch.zeros((e * cap + 1, d), dtype=x_flat.dtype, device=dev)
+    buf = torch.zeros((n * cap + 1, d), dtype=x_flat.dtype, device=dev)
     buf[dest] = x_flat[src_token]
     out_buf = _expert_ffn(params["w_gate"], params["w_in"], params["w_out"],
-                          buf[: e * cap].reshape(e, cap, d), cfg.act)
+                          buf[: n * cap].reshape(n, cap, d), cfg.act, ctx)
 
-    flat_out = out_buf.reshape(e * cap, d)
+    flat_out = out_buf.reshape(n * cap, d)
     picked = torch.where(keep[:, None],
-                         flat_out[torch.clamp(dest, max=e * cap - 1)], 0.0)
+                         flat_out[torch.clamp(dest, max=n * cap - 1)], 0.0)
     return _combine(picked, gates, t, k)
 
 

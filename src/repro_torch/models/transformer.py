@@ -7,6 +7,17 @@ stacked layout is kept (every leaf of ``params["layers"]`` has a leading
 L dimension, so parameters cross from JAX unchanged) and the scan is a
 Python loop over layer views: :func:`stack_apply` for serving,
 :func:`stack_train` (with the MoE aux loss and remat) for training.
+
+Megatron tensor parallelism (a context whose model axis has more than
+one rank, each holding its blocks: ``sharding.param_blocks``) runs the
+dense and MoE families: each block works on its rank's heads and
+``d_ff`` block and sums over the model axis after ``out_proj`` and the
+MLP; an MoE block takes the JAX package's dispatch (``ep_shardmap``:
+:func:`moe.moe_apply_ep_shardmap` or :func:`moe.moe_apply_tp_shardmap`
+for a stateless or prefill block, else :func:`moe.moe_apply`); and with
+``ctx.sp`` a stateless stack keeps the residual split over the sequence
+on the model axis between the blocks (Megatron sequence parallelism:
+gathered before attention and the MLP, reduce-scattered after them).
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     dtype_of, mlp_apply, mlp_init, rmsnorm, rmsnorm_init,
 )
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import HeadPlan, ParallelContext, head_plan
 from repro_torch.tree import tree_map
 
@@ -42,6 +54,22 @@ def check_family(cfg: ModelConfig) -> None:
             f"{cfg.name}: unknown family {cfg.family!r} (the port runs "
             f"{', '.join(FAMILIES)})"
         )
+
+
+TP_FAMILIES = ("dense", "moe")
+
+
+def check_tp(cfg: ModelConfig, ctx: ParallelContext) -> None:
+    """Refuse what tensor parallelism does not run yet: families other
+    than dense and MoE (their ``tmix``/``cmix``/Mamba blocks, M-RoPE
+    media, codebooks), and fsdp (the params' data-axis blocks)."""
+    check_family(cfg)
+    if ctx.mesh is not None and ctx.fsdp:
+        raise NotImplementedError("fsdp parameter blocks are not ported")
+    if coll.tensor_parallel(ctx) and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism runs the "
+            f"{' and '.join(TP_FAMILIES)} families, not {cfg.family}")
 
 
 # ---------------------------------------------------------------------------
@@ -88,13 +116,15 @@ def stack(trees):
 # ---------------------------------------------------------------------------
 
 def layer_state_zeros(cfg: ModelConfig, plan: HeadPlan, batch: int,
-                      cache_len: int, device):
+                      cache_len: int, device, ctx=None):
     """Per-layer decode state. Attention caches are rings over
     ``cache_len`` slots (the sliding window when set); ``pos`` holds the
     absolute position in each slot (-1 = empty). The recurrent states
     ``s`` are f32 whatever the dtype: ssm (B, H, hd, hd) with the token
     shifts ``tshift``/``cshift`` (B, D); hybrid (B, din / 64, ssm_state,
-    64) beside its attention ring."""
+    64) beside its attention ring. Under tensor parallelism the rings
+    hold this rank's ``plan.kv_phys / tp`` kv heads
+    (``model.decode_state_specs``)."""
     check_family(cfg)
     dt = dtype_of(cfg.dtype)
     hd = cfg.resolved_head_dim
@@ -109,7 +139,7 @@ def layer_state_zeros(cfg: ModelConfig, plan: HeadPlan, batch: int,
         }
     sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
-    kv = plan.kv_phys
+    kv = plan.kv_phys // (ctx.tp if coll.tensor_parallel(ctx) else 1)
     if cfg.kv_cache_layout == "dot":
         k = torch.zeros((batch, kv, hd, sc), dtype=dt, device=device)
         v = torch.zeros((batch, kv, sc, hd), dtype=dt, device=device)
@@ -187,10 +217,10 @@ def _qg(q, kvp, scale, cfg, cache_dtype):
     return qg.float() * scale
 
 
-def _ring_decode_attn(params, x, cfg, plan, state, cur_pos):
+def _ring_decode_attn(params, x, cfg, plan, state, cur_pos, ctx=None):
     """x: (B,1,D); state k/v: (B,Sc,kvp,hd); cur_pos: (B,) position of the
     new token. Writes the token into its ring slot, attends. Returns
-    (y, new_state)."""
+    (y, new_state). Under tensor parallelism on the rank's heads."""
     q, k, v = attn_mod.qkv(params, x, cfg, plan,
                            token_positions(cfg, cur_pos))
     sc = state["k"].shape[1]
@@ -215,11 +245,11 @@ def _ring_decode_attn(params, x, cfg, plan, state, cur_pos):
         p = p.to(v_cache.dtype).float()
     out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())
     out = out.reshape(B, 1, H, hd).to(x.dtype)
-    y = attn_mod.out_proj(params, out, plan)
+    y = attn_mod.out_proj(params, out, plan, ctx)
     return y, {"k": k_cache, "v": v_cache, "pos": pos}
 
 
-def _ring_decode_attn_ro(params, x, cfg, plan, state, cur_pos):
+def _ring_decode_attn_ro(params, x, cfg, plan, state, cur_pos, ctx=None):
     """Read-only ring-cache decode: attend over the stale cache plus the
     current token's fresh k/v without writing the cache. Returns
     (y, {"k_new", "v_new"}); :func:`stack_apply` writes every layer's new
@@ -258,7 +288,7 @@ def _ring_decode_attn_ro(params, x, cfg, plan, state, cur_pos):
     s_cur = torch.einsum("bkgh,bkh->bkg", qg, k_new.to(dt).float())
     out = attn_mod.merge_fresh_token(acc, m, l, s_cur, v_new)
     out = out.reshape(B, 1, H, hd).to(x.dtype)
-    y = attn_mod.out_proj(params, out, plan)
+    y = attn_mod.out_proj(params, out, plan, ctx)
     return y, {"k_new": k_new, "v_new": v_new}
 
 
@@ -294,10 +324,15 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
                 paged: Optional[PagedAux] = None, emit_kv: bool = False,
                 backend: Optional[str] = "auto",
                 capacity_tokens: Optional[int] = None,
-                with_aux: bool = False):
+                with_aux: bool = False, sp: bool = False):
     """One decoder block. Returns (y, new_state), or with ``with_aux``
     (y, new_state, aux): the MoE load-balance loss, f32 zero for the other
     families.
+
+    Under tensor parallelism ``params`` and ``state`` are this rank's
+    blocks. ``sp`` (stateless, tensor-parallel): ``x`` and the result are
+    this rank's block of the sequence, gathered before attention and the
+    MLP and reduce-scattered after them.
 
     The mode is inferred: ``state is None`` -> stateless forward;
     seq == 1 with state -> decode; else prefill into the ring state. With
@@ -312,9 +347,12 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
     hybrid's Mamba half) run chunked over ``gla_chunk`` tokens.
     """
     check_family(cfg)
-    S = x.shape[1]
-    decode = state is not None and S == 1
+    seq = 1 if sp else None  # the sequence dim of a reduce-scatter
+    decode = state is not None and x.shape[1] == 1
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if sp:
+        h = coll.model_gather(h, ctx, 1)
+    S = h.shape[1]
     if cfg.family == "ssm":
         out = _rwkv_block(params, x, h, cfg, state, decode, gla_chunk)
         return (*out, _zero_aux(x)) if with_aux else out
@@ -327,10 +365,10 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
                 params["attn"], h, cfg, plan, state, cur_pos, paged)
         elif cfg.decode_appended_kv:
             att, new_state = _ring_decode_attn_ro(
-                params["attn"], h, cfg, plan, state, cur_pos)
+                params["attn"], h, cfg, plan, state, cur_pos, ctx)
         else:
             att, att_state = _ring_decode_attn(
-                params["attn"], h, cfg, plan, state, cur_pos)
+                params["attn"], h, cfg, plan, state, cur_pos, ctx)
             new_state.update(att_state)
     else:
         q, k, v = attn_mod.qkv(params["attn"], h, cfg, plan, positions)
@@ -349,7 +387,7 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
         else:
             out = attn_mod.chunked_attention(
                 q, k, v, window=cfg.sliding_window, chunk=chunk)
-        att = attn_mod.out_proj(params["attn"], out, plan)
+        att = attn_mod.out_proj(params["attn"], out, plan, ctx, seq)
         if new_state is not None:
             new_state.update(_ring_prefill_write(state, k, v, cfg))
         elif emit_kv:
@@ -371,15 +409,35 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
 
     x = x + att
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    if sp:
+        h2 = coll.model_gather(h2, ctx, 1)
     if cfg.is_moe:
-        y2, aux = moe_mod.moe_apply(params["moe"], h2, cfg, no_drop=decode,
-                                    capacity_tokens=capacity_tokens)
+        y2, aux = _moe(params["moe"], h2, cfg, ctx, decode, capacity_tokens)
+        if sp:  # the dispatches return the whole sequence on every rank
+            y2 = coll.model_block(y2, ctx, 1)
     else:
-        y2, aux = mlp_apply(params["mlp"], h2, cfg.act), None
+        y2, aux = mlp_apply(params["mlp"], h2, cfg.act, ctx, seq), None
     if with_aux:
         aux = _zero_aux(x) if aux is None else aux
         return x + y2, new_state, aux
     return x + y2, new_state
+
+
+def _moe(params, h, cfg, ctx, decode, capacity_tokens):
+    """The MoE dispatch the JAX package's block takes: under a mesh with
+    ``ep_shardmap``, a stateless or prefill block runs the explicit EP
+    (``use_ep``) or expert-TP dispatch; otherwise, and when decoding,
+    ``moe_apply`` (GSPMD's path; ``no_drop`` when decoding)."""
+    if ctx.ep_shardmap and ctx.mesh is not None and not decode:
+        if coll.tensor_parallel(ctx) and (h.shape[0] * h.shape[1]) % ctx.tp:
+            raise ValueError(
+                f"the shard_map dispatch splits {h.shape[0] * h.shape[1]} "
+                f"tokens over {ctx.tp} model ranks")
+        fn = moe_mod.moe_apply_ep_shardmap if ctx.use_ep \
+            else moe_mod.moe_apply_tp_shardmap
+        return fn(params, h, cfg, ctx)
+    return moe_mod.moe_apply(params, h, cfg, ctx, no_drop=decode,
+                             capacity_tokens=capacity_tokens)
 
 
 def _zero_aux(x):
@@ -436,21 +494,39 @@ def stack_train(layers, x, cfg: ModelConfig, plan: HeadPlan,
     """The stateless (training) stack: every block in order, each
     rematerialised in the backward when ``cfg.remat`` (the JAX package's
     ``jax.checkpoint`` of the scan body). Returns (y, aux): the MoE aux
-    losses summed over the layers in order from f32 zero."""
+    losses summed over the layers in order from f32 zero. With ``ctx.sp``
+    under tensor parallelism the blocks run sequence-parallel (``x`` and
+    ``y`` whole)."""
+    check_tp(cfg, ctx)
+    sp = _seq_parallel(ctx, x)
+
     def body(lp, h):
         y, _, a = block_apply(lp, h, cfg, plan, ctx, positions, chunk=chunk,
-                              with_aux=True)
+                              with_aux=True, sp=sp)
         return y, a
 
     aux = _zero_aux(x)
-    h = x
+    h = coll.model_block(x, ctx, 1) if sp else x
     for lp in unbind(layers):
         if cfg.remat:
             h, a = checkpoint(body, lp, h, use_reentrant=False)
         else:
             h, a = body(lp, h)
         aux = aux + a
-    return h, aux
+    return (coll.model_gather(h, ctx, 1) if sp else h), aux
+
+
+def _seq_parallel(ctx: ParallelContext, x) -> bool:
+    """Megatron sequence parallelism for a stateless stack: ``ctx.sp``
+    under tensor parallelism (JAX's sharding constraint on each block's
+    output, ``P(batch, model, None)``), on a sequence the model axis
+    splits evenly."""
+    if not (ctx.sp and coll.tensor_parallel(ctx)):
+        return False
+    if x.shape[1] % ctx.tp:
+        raise ValueError(f"sequence parallelism splits {x.shape[1]} "
+                         f"positions over {ctx.tp} model ranks")
+    return True
 
 
 def stack_apply(layers, x, cfg: ModelConfig, plan: HeadPlan,
@@ -466,16 +542,22 @@ def stack_apply(layers, x, cfg: ModelConfig, plan: HeadPlan,
     the returned states are only each layer's new {"k_new","v_new"}
     (L, B, kvp, hd) for the caller's one batched append. ``emit_kv``
     (stateless prefill) returns each layer's raw prompt {"k","v"};
-    ``capacity_tokens`` goes to every MoE block."""
+    ``capacity_tokens`` goes to every MoE block. With ``ctx.sp`` under
+    tensor parallelism a stateless stack runs sequence-parallel between
+    its first and last block (``x`` and the result whole)."""
+    check_tp(cfg, ctx)
+    sp = states is None and _seq_parallel(ctx, x)
     outs = []
-    h = x
+    h = coll.model_block(x, ctx, 1) if sp else x
     for i in range(cfg.num_layers):
         st = None if states is None else layer(states, i)
         h, new_st = block_apply(
             layer(layers, i), h, cfg, plan, ctx, positions, st, chunk=chunk,
             paged=paged, emit_kv=emit_kv, backend=backend,
-            capacity_tokens=capacity_tokens)
+            capacity_tokens=capacity_tokens, sp=sp)
         outs.append(new_st)
+    if sp:
+        h = coll.model_gather(h, ctx, 1)
     new_states = stack(outs) if outs[0] is not None else None
     decode = states is not None and x.shape[1] == 1
     if decode and paged is None and cfg.decode_appended_kv \

@@ -14,7 +14,10 @@ calls on the process group of one axis of a running
 - :func:`psum`, :func:`pmean` — over one axis or several; :func:`pmax`;
 - :func:`all_to_all` — split and concatenate on dim 0, ``tiled=False``;
 - :func:`all_gather` — ``tiled=True`` on a dim; :func:`psum_scatter`, its
-  reverse (reduce-scatter, ``tiled=True``), for the ZeRO-1 update.
+  reverse (reduce-scatter, ``tiled=True``), for the ZeRO-1 update;
+- :func:`model_psum`, :func:`model_reduce`, :func:`model_gather`,
+  :func:`model_block` — the same over a ``ParallelContext``'s model axis,
+  as the tensor-parallel forward uses them (the identity at tp 1).
 
 Transport. The caller names the backend when it launches the ranks, and
 nothing picks or falls back to another. Ranks with a card each use
@@ -232,6 +235,76 @@ def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor
     _count(w)
     dist.reduce_scatter_tensor(out, w, group=group)
     return _back(out, x).movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# Megatron tensor parallelism over a context's model axis
+# ---------------------------------------------------------------------------
+# The forms the model's forward needs, on ``ctx.model_axis`` of a running
+# ``ctx.mesh`` (a ``sharding.ParallelContext``). Each is the identity (or
+# the whole tensor) when ``ctx`` splits nothing: no mesh, or a model axis
+# of one rank. They are forward-only: the staged transport is outside
+# autograd, so a tensor that needs a gradient is refused here rather than
+# left without one.
+
+def tensor_parallel(ctx) -> bool:
+    """True when ``ctx`` splits the model over more than one rank."""
+    return ctx is not None and ctx.mesh is not None and ctx.tp > 1
+
+
+def model_rank(ctx) -> int:
+    """This rank's coordinate along the model axis (0 without a mesh)."""
+    return 0 if ctx is None or ctx.mesh is None else \
+        ctx.mesh.coord(ctx.model_axis)
+
+
+def _forward_only(x: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "tensor parallelism is forward-only: the model-axis "
+            "collectives have no backward (training at tp > 1 is not "
+            "ported)")
+
+
+def model_psum(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum over the model axis of a row-split product's partials."""
+    if not tensor_parallel(ctx):
+        return x
+    _forward_only(x)
+    return psum(x, ctx.mesh, ctx.model_axis)
+
+
+def model_reduce(x: torch.Tensor, ctx, seq_dim=None) -> torch.Tensor:
+    """A row-split product's partials summed over the model axis: whole
+    (:func:`model_psum`), or with ``seq_dim`` this rank's block of the
+    sum along the sequence (Megatron sequence parallelism's
+    reduce-scatter, :func:`psum_scatter`)."""
+    if seq_dim is None or not tensor_parallel(ctx):
+        return model_psum(x, ctx)
+    _forward_only(x)
+    return psum_scatter(x, ctx.mesh, ctx.model_axis, seq_dim)
+
+
+def model_gather(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
+    """The model ranks' blocks concatenated along ``dim``: a sequence-
+    sharded activation made whole, or the vocab shards of the logits."""
+    if not tensor_parallel(ctx):
+        return x
+    _forward_only(x)
+    return all_gather(x, ctx.mesh, ctx.model_axis, dim)
+
+
+def model_block(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of a tensor every model rank holds
+    whole (no communication)."""
+    if not tensor_parallel(ctx):
+        return x
+    n = ctx.tp
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over the model axis ({n})")
+    k = x.shape[dim] // n
+    return x.narrow(dim, model_rank(ctx) * k, k)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,9 @@ Programs here are per rank (SPMD by hand, as inside JAX's ``shard_map``):
 a tensor a rank holds is its block of the logical array.
 :class:`PartitionSpec` names which mesh axes split each dimension, and
 :func:`shard_block` cuts a rank's block out of a full array (an elastic
-restore, the ZeRO-1 moments, a rank's rows of the global batch).
+restore, the ZeRO-1 moments, a rank's rows of the global batch), and
+:func:`param_blocks` a rank's block of a whole params tree (Megatron
+tensor parallelism over the ``model`` axis).
 :func:`shard` — JAX's sharding constraint — changes no value, and is the
 identity here.
 """
@@ -30,6 +32,9 @@ import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import torch
+
+from repro_torch.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Head plan
@@ -312,6 +317,21 @@ def param_specs(params_tree: Any, ctx: ParallelContext) -> Any:
     """The spec of every leaf of a params tree (tensors, meta tensors or
     anything with ``.shape``), paths joined with ``/`` as JAX's are."""
     return _spec_tree(params_tree, "", ctx)
+
+
+def param_blocks(params: Any, ctx: ParallelContext) -> Any:
+    """This rank's block of every leaf of a full params tree, by
+    :func:`param_specs` and :func:`shard_block`, each a copy of its own
+    (so the full tree can be freed). Under Megatron tensor parallelism a
+    rank holds its heads of ``wq``/``wk``/``wv``/``wo``, its ``d_ff``
+    block of the MLP, its vocab rows of the embedding and columns of the
+    head, and its experts (``use_ep``) or their ``d_ff`` block. Without a
+    split (no mesh, model axis 1, no fsdp) the tree itself."""
+    if ctx.mesh is None or (ctx.tp == 1 and not ctx.fsdp):
+        return params
+    return tree_map(lambda x, spec: shard_block(x, spec, ctx.mesh).clone(
+        memory_format=torch.contiguous_format), params,
+        param_specs(params, ctx))
 
 
 def shard(x, ctx: ParallelContext, *axes):

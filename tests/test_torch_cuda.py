@@ -1281,6 +1281,59 @@ def test_flash_attention_at_the_family_serve_shapes(dev, dtype, h, kvh, s,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh", [(20, 4), (16, 2)])
+def test_flash_attention_at_the_tensor_parallel_rank_shapes(dev, dtype, h,
+                                                            kvh):
+    """The flash prefill at one of two tensor-parallel ranks' heads:
+    qwen2.5-14b's 40 q / 8 kv as 20 / 4 (G 5), qwen3-moe's 32 / 4 as
+    16 / 2 (G 8); hd 128, 512 tokens, two prompts."""
+    rng = np.random.default_rng(h + kvh)
+    host = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dtype) for shape in ((2, h, 512, 128), (2, kvh, 512, 128),
+                                     (2, kvh, 512, 128))]
+    want = ref.flash_attention(*host)
+    fa.reset_launches()
+    got = fa.flash_attention(*(t.to(dev) for t in host))
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1
+    tol = 2e-5 if dtype == torch.float32 else LM_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_tensor_parallel_decode_on_two_ranks_equals_one_process(dev):
+    """prefill and greedy decode steps of a small bf16 dense model on 2
+    model ranks sharing the card (gloo, host-staged) against the same
+    params in one process on the card: each step's logits within the bf16
+    kernel tolerance of the largest |logit| (the row-split products sum
+    in another order), the ranks' logits equal bit for bit, and each rank
+    launched flash once a layer of the prefill at its 4 q / 2 kv heads."""
+    import torch_tp_ranks as tpr
+    from repro_torch.models import model
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import local_context
+
+    cfg = tpr.cuda_tp_config()
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(1, cfg.vocab_size, tpr.CUDA_PROMPTS).astype(
+        np.int32)
+    with torch.no_grad():
+        ctx = local_context()
+        want = tpr.cuda_decode(model.init_params(3, cfg, ctx, "cuda"), cfg,
+                               ctx, torch.from_numpy(prompts).cuda())
+    out = coll.launch(tpr.cuda_decode_rank, 2, backend="gloo",
+                      args=(prompts,), timeout=300)
+    for logits, launches in out:
+        assert launches == {"flash_attention": cfg.num_layers}, launches
+        for a, b in zip(logits, want):
+            b = b.float().numpy()
+            assert np.abs(a - b).max() <= LM_TOL[torch.bfloat16] \
+                * np.abs(b).max()
+    for a, b in zip(out[0][0], out[1][0]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_stats_at_the_vlm_serve_shape(dev, dtype):
     """The paged walk at qwen2-vl-7b's decode shape: B 32, KVH 4, G 7,
     hd 128, 40-page tables of 16-token pages."""
