@@ -113,7 +113,7 @@ Phases, each printing one JSON line:
                   host cold tier: a kill mid-decode, recovery bit for bit
                   the never-crashed twin's, token streams byte-identical to
                   the twin's and to a plain engine's (``ref``);
-18. lm_serve    — 12 of its 48 layers (widths kept) in bf16 with the
+18. lm_serve    — 8 of its 48 layers (widths kept) in bf16 with the
                   flash prefill, 96
                   requests (512-token prompts, caps up to 128) through 32
                   slots: the kernel engine (the launch counts), the plain
@@ -122,19 +122,19 @@ Phases, each printing one JSON line:
                   decide at least 10% (and 64) of its rows with equal
                   argmax, and a per-layer walk check of the live pool;
 19. lm_moe_serve — the same for Qwen3-MoE-30B-A3B at full width cut to
-                  12 of its 48 layers, in bf16 (128 experts, top 8; 16
+                  8 of its 48 layers, in bf16 (128 experts, top 8; 11
                   GB of weights), after the dense weights are freed: the
                   same engine and requests, the same checks, and the share
                   of (token, layer) top-8 expert sets on which the kernel
                   and plain paths agree in the teacher-forced window
                   (reported);
-20. lm_vlm_serve — Qwen2-VL-7B (M-RoPE, G 7), 10 of its 28 layers in bf16,
+20. lm_vlm_serve — Qwen2-VL-7B (M-RoPE, G 7), 4 of its 28 layers in bf16,
                   the
                   same engine and checks, 32 requests, and a media prefill
                   (1,024 media positions) against the plain version and
                   against no media, whose logits it must change;
 21. lm_hybrid_serve — Hymba-1.5B (attention in a 1,024-token window beside
-                  a Mamba branch), 24 of its 32 layers in bf16, 32
+                  a Mamba branch), 6 of its 32 layers in bf16, 32
                   requests of
                   2,048 tokens through the dense ring engine with the
                   flash prefill, the plain engine beside it; the
@@ -144,8 +144,8 @@ Phases, each printing one JSON line:
                   two plain versions; in f32 at full width and that depth
                   the 10% share; every layer's flash call against its plain
                   version; a crash-and-recover cycle (below);
-22. lm_ssm_serve — RWKV6-1.6B (attention-free), all 24 layers in bf16, 32
-                  requests through the dense engine: no hand-written
+22. lm_ssm_serve — RWKV6-1.6B (attention-free), 6 of its 24 layers in
+                  bf16, 32 requests through the dense engine: no hand-written
                   kernel on its path; the card against the CPU in f32 at
                   4 layers, 8 requests: equal token streams, states within
                   1e-5 of each layer's scale; a crash-and-recover cycle:
@@ -163,10 +163,10 @@ Phases, each printing one JSON line:
                   it; the teacher-forced rows with the 10% share; every
                   layer's flash call against its plain version;
 24. lm_train     — Qwen1.5-0.5B trained at full width and depth in bf16
-                  (remat on), 4 x 4,096 tokens a step: 10 steps through
+                  (remat on), 4 x 4,096 tokens a step: 4 steps through
                   the launcher's train step, data pipeline and schedule,
                   every loss and grad norm finite, with a checkpoint after
-                  step 5; steps 6-10 resumed from it equal the
+                  step 2; steps 3-4 resumed from it equal the
                   uninterrupted run bit for bit; every bf16 product of one
                   step (``layers.MatmulF32``) with its grads held against
                   the plain upcast product's on the same inputs and
@@ -183,10 +183,27 @@ Phases, each printing one JSON line:
                   params' change from step 0 included; rank 0 saves and
                   a one-rank ``elastic.resume`` restores params and
                   optimizer state bit for bit.
-26. lm_tp_serve  — Megatron tensor parallelism of LM serving on 2 model
+26. tp_train     — the same Qwen1.5-0.5B run (its seed and batches) on 2
+                  model ranks sharing the card, mesh (1, 2), through the
+                  launcher's ``build_train_step``: losses and grad norms
+                  within the training tolerance of zero1_train's
+                  single-process steps, the params' change from step 0 at
+                  cosine 0.5 or more with the single run's (this rank's
+                  block; the distance printed), each rank's update equal
+                  to a one-device AdamW replay of its blocks on the
+                  gradients its steps took (norm, m, v within 1e-4, the
+                  change within 1e-2), the replicated
+                  leaves bit-equal across the ranks after every step; then
+                  f32 gradients at full width, Qwen1.5-0.5B (2 layers, 256
+                  tokens) and Qwen3-MoE-30B-A3B (2 layers, 512 tokens, the
+                  EP dispatch, dropless on both sides), each rank's blocks
+                  within 1e-4 of each leaf's largest |grad| of the
+                  one-process gradient on the card. No hand-written kernel
+                  runs on this path;
+27. lm_tp_serve  — Megatron tensor parallelism of LM serving on 2 model
                   ranks sharing the card (gloo, host-staged): Qwen2.5-14B
-                  at full width cut to 8 of 48 layers (20 q / 4 kv heads
-                  a rank) and Qwen3-MoE-30B-A3B cut to 4 (64 experts and
+                  at full width cut to 2 of 48 layers (20 q / 4 kv heads
+                  a rank) and Qwen3-MoE-30B-A3B cut to 2 (64 experts and
                   16 q / 2 kv heads a rank, the EP shard_map dispatch for
                   prefill), bf16, each rank its blocks of the seeded
                   params, 16 requests of 512 tokens through the dense ring
@@ -288,8 +305,8 @@ MERCI_RTOL, MERCI_ATOL = 1e-3, 1e-4  # tests/test_dlrm.py
 # qwen2_5_14b.py: 48 layers, d_model 5120, 40 q / 8 kv heads, hd 128,
 # d_ff 13824, vocab 152064, bf16), random weights from the seed
 LM_ARCH = "qwen2.5-14b"
-LM_LAYERS = 12  # lm_serve cut from 48 (widths kept), to make room for the
-# multi-rank phases within the script's time limit
+LM_LAYERS = 8  # lm_serve cut from 48 (widths kept), to make room for the
+# multi-rank phases within the script's time limit (12 before tp_train)
 LM_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=128,
                  slots=32, admit_per_step=8, paged=True, page_size=16)
 LM_REQUESTS = 96
@@ -305,7 +322,7 @@ LM_LONG = (4, 16384)
 # (G = 8) in lm_kernels
 LM_MOE_ARCH = "qwen3-moe-30b-a3b"
 LM_MOE_REQUESTS = 48  # cut from lm_serve's 96 to keep the script's time
-LM_MOE_LAYERS = 12  # cut from 48 (widths kept) for the script's time
+LM_MOE_LAYERS = 8  # cut from 48 (widths kept) for the script's time
 LM_MOE_HEADS = (32, 4)
 # the other four families, each at full width and depth in bf16 with
 # random weights from the seed (src/repro_torch/configs/): Qwen2-VL-7B (28
@@ -318,12 +335,13 @@ LM_MOE_HEADS = (32, 4)
 # MusicGen-large (48 layers, d 2048, 32 q / 32 kv heads of 64, 4
 # codebooks) through prefill and decode_step
 LM_VLM_ARCH, LM_VLM_REQUESTS = "qwen2-vl-7b", 32
-LM_VLM_LAYERS = 10  # cut from 28 (widths kept) for the script's time
+LM_VLM_LAYERS = 4  # cut from 28 (widths kept) for the script's time
 LM_HYBRID_ARCH = "hymba-1.5b"
-LM_HYBRID_LAYERS = 24  # cut from 32 (widths kept) for the script's time
+LM_HYBRID_LAYERS = 6  # cut from 32 (widths kept) for the script's time
 LM_HYBRID_ENGINE = dict(LM_ENGINE, paged=False, prompt_len=2048,
                         cache_len=1024)
 LM_SSM_ARCH = "rwkv6-1.6b"
+LM_SSM_LAYERS = 6  # cut from 24 (widths kept) for the script's time
 LM_SSM_ENGINE = dict(LM_ENGINE, paged=False)
 LM_DENSE_REQUESTS = 32  # hybrid and ssm
 # their crash-and-recover cycles: a flush every LM_RECOVER_EVERY engine
@@ -356,7 +374,7 @@ LM_TF_STEPS = 40  # teacher-forced decode steps (at least 32)
 # within LM_TRAIN_F32_TOL of each leaf's scale
 LM_TRAIN_ARCH = "qwen1.5-0.5b"
 LM_TRAIN_BATCH = 4
-LM_TRAIN_STEPS, LM_TRAIN_SAVE_AT = 10, 5
+LM_TRAIN_STEPS, LM_TRAIN_SAVE_AT = 4, 2
 LM_TRAIN_GRAD_TOL = 1e-2
 LM_TRAIN_CPU = (2, 2, 256)
 LM_TRAIN_F32_TOL = 1e-5
@@ -396,6 +414,31 @@ ZERO1_M_TOL = 3e-2
 ZERO1_HALF_TOL = 1e-4
 ZERO1_DELTA_TOL = 1e-2
 ZERO1_DELTA_COS = 0.5
+# tp_train: training under Megatron tensor parallelism, TP_TRAIN_RANKS
+# model ranks sharing the card (gloo, host-staged). zero1_train's run
+# (Qwen1.5-0.5B, full depth, bf16, remat, its global batches and seed)
+# through build_train_step on a (1, 2) mesh, held against the
+# single-process steps zero1_train ran: losses and grad norms within
+# ZERO1_TOL, the change from step 0 at cosine ZERO1_DELTA_COS or more
+# with the single run's (this rank's block), the replicated leaves
+# bit-equal across the ranks. The update is held to a replay with the
+# ranks' own arithmetic, as zero1_train's half-batch reference holds
+# its ranks: on each rank, one-device AdamW of its blocks on the
+# gradient blocks each step took, clipped by the ranks' norm; that norm
+# summed afresh in f64, m and v within ZERO1_HALF_TOL and the change
+# within ZERO1_DELTA_TOL of the replay's. The change's distance from the
+# single run's is printed, not gated (0.114 on an NVIDIA H100 at full
+# depth: at this rate most bf16 params do not move, and which cross a
+# rounding boundary depends on the order of the sums; zero1_train prints
+# its ranks' distance beside it). Then f32 gradients at full width,
+# (layers, batch, tokens): Qwen1.5-0.5B and Qwen3-MoE-30B-A3B (EP
+# shard_map dispatch, dropless as lm_tp_serve: the ranks at
+# LM_TP_MOE_CF, the one process at E/k), each rank's blocks within
+# TP_TRAIN_GRAD_TOL of each leaf's largest |grad| of the one-process
+# gradient on the card
+TP_TRAIN_RANKS = 2
+TP_TRAIN_DENSE_F32, TP_TRAIN_MOE_F32 = (2, 1, 256), (2, 1, 512)
+TP_TRAIN_GRAD_TOL = 1e-4
 # lm_tp_serve: Megatron tensor parallelism of LM serving over LM_TP_RANKS
 # model ranks sharing the card (gloo, host-staged). The dense run is
 # Qwen2.5-14B at full width cut to LM_TP_LAYERS of 48 layers (20 q / 4 kv
@@ -412,7 +455,7 @@ ZERO1_DELTA_COS = 0.5
 # f32 LM measure (POOL_REL_TOL of each value's scale: logits each step,
 # each layer's ring caches on the rank's kv heads)
 LM_TP_RANKS = 2
-LM_TP_LAYERS, LM_TP_MOE_LAYERS, LM_TP_F32_LAYERS = 8, 4, 2
+LM_TP_LAYERS, LM_TP_MOE_LAYERS, LM_TP_F32_LAYERS = 2, 2, 2
 # the MoE run is dropless on both sides, so both compute one function
 # (Qwen3-MoE itself drops nothing): the ranks' EP shard_map prefill
 # sizes a send buffer from each rank's share of the tokens and an
@@ -3297,7 +3340,8 @@ def phase_lm_hybrid_serve(torch, np, eng, serve, rb, cfg_mod, model, ops, pa,
 
 def phase_lm_ssm_serve(torch, np, eng, serve, rb, cfg_mod, model, pa, fa,
                        ctx, smi):
-    """RWKV6-1.6B, all 24 layers in bf16, LM_DENSE_REQUESTS requests
+    """RWKV6-1.6B, LM_SSM_LAYERS of its 24 layers in bf16,
+    LM_DENSE_REQUESTS requests
     through the dense engine. No hand-written kernel lies on this path
     (the JAX package's ssm mixers have no Pallas kernel): the phase
     reports the engine and checks the card against the CPU in f32 at
@@ -3309,7 +3353,8 @@ def phase_lm_ssm_serve(torch, np, eng, serve, rb, cfg_mod, model, pa, fa,
     start_gb = torch.cuda.memory_allocated() / 1e9
     seed = SEED + 60
     cfg, params, init_s, pbytes = lm_setup(torch, cfg_mod, model, ctx,
-                                           LM_SSM_ARCH, seed)
+                                           LM_SSM_ARCH, seed,
+                                           num_layers=LM_SSM_LAYERS)
     ecfg = eng.LMEngineConfig(**LM_SSM_ENGINE, kernel_backend="auto")
     prompts, caps = lm_requests(np, cfg, LM_DENSE_REQUESTS, seed + 2)
     secs = {}
@@ -4063,7 +4108,7 @@ def zero1_rank(rank, world, spec):
         b = b.to(dev).float()
         m_rel[name] = float((a.float() - b).abs().max()) / (
             float(b.abs().max()) or 1.0)
-    dot = dict.fromkeys(("rs", "rr", "ss"), 0.0)
+    dot = dict.fromkeys(("rs", "rr", "ss", "dd"), 0.0)
     for a, p0, b in zip(leaves(params), leaves(ref["p0"]),
                         leaves(ref["params"])):
         p0, b = p0.to(dev).float(), b.to(dev).float()
@@ -4073,11 +4118,17 @@ def zero1_rank(rank, world, spec):
         dot["rs"] += float(torch.sum(dr * ds, dtype=torch.float64))
         dot["rr"] += float(torch.sum(dr * dr, dtype=torch.float64))
         dot["ss"] += float(torch.sum(ds * ds, dtype=torch.float64))
+        dot["dd"] += float(torch.sum(torch.square(dr - ds),
+                                     dtype=torch.float64))
     out["m_rel_diff_vs_single"] = dict(sorted(
         m_rel.items(), key=lambda kv: -kv[1])[:4])
     out["param_excess_over_bound"] = excess
     out["delta_cos_vs_single"] = dot["rs"] / (
         (dot["rr"] * dot["ss"]) ** 0.5) if dot["rr"] * dot["ss"] else 0.0
+    # printed beside tp_train's: the distance of a change whose update
+    # the half-batch reference holds, from the single run's
+    out["delta_rel_diff_vs_single"] = (dot["dd"] / dot["ss"]) ** 0.5 \
+        if dot["ss"] else float("inf")
     out["lrs"] = lrs
     del ref
 
@@ -4192,14 +4243,18 @@ def zero1_half_reference(torch, cfg, ocfg, spec, batches, p0, norms,
     return out
 
 
-def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None):
+def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None,
+                      keep=None):
     """Qwen1.5-0.5B at full width and depth, bf16 with remat, train_4k's
     4,096 tokens, a global batch of ZERO1_BATCH over ZERO1_RANKS data
     ranks that share the card (gloo, host-staged): ZERO1_STEPS steps.
     First the single-process step on the same global batches (its params
     and first moment, and the step-0 params, kept on the host for the
     ranks), freed before the ranks start; after the ranks, the half-batch
-    reference (:func:`zero1_half_reference`) against their checkpoint."""
+    reference (:func:`zero1_half_reference`) against their checkpoint.
+    With ``keep`` (a dict) the single-process run's files stay on disk
+    and ``keep`` gets its spec, results and directory (``root``: the
+    caller removes it): tp_train reuses them."""
     import dataclasses
     import gc
 
@@ -4266,8 +4321,11 @@ def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None):
                                     ranks[0]["grad_norms"], single_m)
         half["s"] = time.perf_counter() - t
         del batches, p0, single_m
+        if keep is not None:
+            keep.update(spec=spec, single=single, root=root)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if keep is None or "root" not in keep:
+            shutil.rmtree(root, ignore_errors=True)
     r0 = ranks[0]
     tokens = spec["shape"].tokens
     med = statistics.median(r0["step_s"][1:] or r0["step_s"])
@@ -4295,6 +4353,7 @@ def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None):
            "m_rel_diff_vs_single": r0["m_rel_diff_vs_single"],
            "param_excess_over_bound": r0["param_excess_over_bound"],
            "delta_cos_vs_single": r0["delta_cos_vs_single"],
+           "delta_rel_diff_vs_single": r0["delta_rel_diff_vs_single"],
            "half": half,
            "loss_rel_diff_vs_half": loss_half,
            "grad_norm_rel_diff_vs_half": gnorm_half,
@@ -4344,6 +4403,439 @@ def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None):
 
 
 # ---------------------------------------------------------------------------
+# Training under Megatron tensor parallelism: model ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _model_blocks(tree, ctx):
+    """This rank's model blocks of a whole params-shaped tree (views)."""
+    from repro_torch.parallel.sharding import param_specs, shard_block
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x, sp: shard_block(x, sp, ctx.mesh), tree,
+                    param_specs(tree, ctx))
+
+
+def _replicated(tree, ctx):
+    """The leaves of a params-shaped tree that every model rank holds
+    whole, by name."""
+    from repro_torch.optim.adamw import model_split
+
+    split = dict(_named_leaves(model_split(tree, ctx)))
+    return [(k, x) for k, x in _named_leaves(tree) if not split[k]]
+
+
+def tp_grad_check(torch, rank_grads, ref_path, scales, ctx):
+    """Each leaf of this rank's gradient blocks against its block of the
+    one-process gradient (``ref_path``, mapped: only the blocks are
+    read): max |diff| over the whole leaf's largest |value| (``scales``,
+    by leaf). Returns ({leaf: rel}, the worst leaf)."""
+    ref = torch.load(ref_path, map_location="cpu", mmap=True)
+    want = _model_blocks(ref, ctx)
+    rel = {}
+    for (k, g), (_, w) in zip(_named_leaves(rank_grads),
+                              _named_leaves(want)):
+        rel[k] = float((g.float() - w.to(g.device).float()).abs().max()) \
+            / (scales[k] or 1.0)
+    worst = max(rel, key=rel.get)
+    return rel, {"leaf": worst, "rel": rel[worst]}
+
+
+def tp_train_rank(rank, world, spec):
+    """This rank of a (1, world) ("data", "model") mesh on the card: the
+    launcher's ``build_train_step`` on its blocks of zero1_train's seeded
+    params and global batches (bf16, remat), held against the
+    single-process run's checkpoint (``spec["ref"]``: the step-0 params
+    and the params after the steps) and against its own replay (one-device
+    AdamW of its blocks on the gradients the steps took); then the f32
+    gradient checks, each against a one-process gradient on the card
+    (``spec["grads"]``)."""
+    import gc
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    from repro_torch.models import model, moe, postprocess_grads
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import param_blocks
+    from repro_torch.tree import leaves, tree_map
+
+    dev = spec["device"]
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    mesh = lmesh.make_test_mesh((1, world), ("data", "model"))
+    cfg, shape = spec["cfg"], spec["shape"]
+    ctx = lmesh.make_context(mesh, cfg)
+    out = {"rank": rank, "backend": mesh.backend}
+    params = param_blocks(model.init_params(spec["seed"], cfg, ctx, dev),
+                          ctx)
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    p0 = tree_map(lambda x: x.detach().to("cpu", copy=True), params)
+    ref = torch.load(spec["ref"], map_location="cpu", mmap=True)
+    ocfg = optim.AdamWConfig()
+    opt = optim.zero1_init(params, ocfg, ctx)
+    step_fn = train.build_train_step(cfg, ctx, ocfg)
+    # the replay: one-device AdamW (optim.update) of this rank's blocks,
+    # from the step-0 blocks, on the gradient blocks each step took (read
+    # off its zero1_update call), clipped by the ranks' norm; and that
+    # norm summed afresh in f64 (a leaf whose block is smaller than the
+    # single run's whole leaf is split: its squares summed over the ranks)
+    seen, real_update = {}, train.zero1_update
+
+    def recording(grads, *a, **k):
+        res = real_update(grads, *a, **k)
+        seen.update(grads=grads, norm=res[3]["grad_norm"])
+        return res
+
+    split = [tuple(x.shape) != tuple(w.shape)
+             for x, w in zip(leaves(params), leaves(ref["p0"]))]
+    rp = tree_map(lambda x: x.detach().clone(), params)
+    ropt = optim.init(rp, ocfg)
+    own_norms = []
+    losses, gnorms, lrs, step_s, wire, digests = [], [], [], [], [], []
+    train.zero1_update = recording
+    try:
+        for s in range(spec["steps"]):
+            host = batch_for_step(cfg, shape, DataConfig(seed=0), s)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+            coll.reset_stats()
+            sync()
+            t = time.perf_counter()
+            params, opt, _, m = step_fn(params, opt, None, batch)
+            sync()
+            step_s.append(time.perf_counter() - t)
+            wire.append(dict(coll.stats))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            lrs.append(float(m["lr"]))
+            digests.append(_digest(torch, dict(_replicated(params, ctx))))
+            g = seen.pop("grads")
+            sq = [0.0, 0.0]
+            for x, sp in zip(leaves(g), split):
+                sq[sp] += float(torch.sum(torch.square(x.double())))
+            sq[1] = float(coll.all_gather(torch.tensor(
+                [sq[1]], dtype=torch.float64, device=dev), mesh,
+                "model").sum())
+            own_norms.append((sq[0] + sq[1]) ** 0.5)
+            rp, ropt, _ = optim.update(g, ropt, rp, m["lr"], ocfg,
+                                       gnorm=seen.pop("norm"))
+            del g
+    finally:
+        train.zero1_update = real_update
+    out.update(losses=losses, grad_norms=gnorms, lrs=lrs, step_s=step_s,
+               wire=wire, digests=digests,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9
+               if dev == "cuda" else None)
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()) / (  # noqa: E731
+        float(b.float().abs().max()) or 1.0)
+    num = den = 0.0
+    differ = 0
+    for a, b, z in zip(leaves(params), leaves(rp), leaves(p0)):
+        z = z.to(dev).float()
+        num += float(torch.sum(torch.square(a.float() - b.float()),
+                               dtype=torch.float64))
+        den += float(torch.sum(torch.square(b.float() - z),
+                               dtype=torch.float64))
+        differ += int(torch.count_nonzero(a != b))
+    out["replay"] = {
+        "grad_norm_rel_diff": max(abs(a - b) / b for a, b in
+                                  zip(gnorms, own_norms)),
+        "m_rel_diff": max(rel(a, b) for a, b in
+                          zip(leaves(opt.m), leaves(ropt.m))),
+        "v_rel_diff": max(rel(a, b) for a, b in
+                          zip(leaves(opt.v), leaves(ropt.v))),
+        "delta_rel_diff": (num / den) ** 0.5 if den else float("inf"),
+        "params_differing": differ,
+        "bit_equal": bool(differ == 0 and all(
+            torch.equal(a, b) for a, b in
+            zip(leaves(opt.m) + leaves(opt.v),
+                leaves(ropt.m) + leaves(ropt.v))))}
+    del rp, ropt
+    # the replicated leaves whole against the other ranks' (rank 0
+    # compares), and this rank's blocks against the single run's
+    equal = True
+    for _, x in _replicated(params, ctx):
+        for src in range(1, world):
+            other = coll.ppermute(x, mesh, "model", [(src, 0)])
+            if rank == 0:
+                equal &= torch.equal(x, other)
+    out["replicated_equal"] = bool(equal) if rank == 0 else None
+    single = _model_blocks(ref["params"], ctx)
+    out["same_init_as_single"] = all(
+        torch.equal(a, b) for a, b in zip(
+            leaves(p0), leaves(_model_blocks(ref["p0"], ctx))))
+    dot = dict.fromkeys(("rs", "rr", "ss", "dd"), 0.0)
+    for a, z, b in zip(leaves(params), leaves(p0), leaves(single)):
+        z, b = z.to(dev).float(), b.to(dev).float()
+        dr, ds = a.float() - z, b - z
+        dot["rs"] += float(torch.sum(dr * ds, dtype=torch.float64))
+        dot["rr"] += float(torch.sum(dr * dr, dtype=torch.float64))
+        dot["ss"] += float(torch.sum(ds * ds, dtype=torch.float64))
+        dot["dd"] += float(torch.sum(torch.square(dr - ds),
+                                     dtype=torch.float64))
+    out["delta_cos_vs_single"] = dot["rs"] / (
+        (dot["rr"] * dot["ss"]) ** 0.5) if dot["rr"] * dot["ss"] else 0.0
+    out["delta_rel_diff_vs_single"] = (dot["dd"] / dot["ss"]) ** 0.5 \
+        if dot["ss"] else float("inf")
+    out["moved_elements"] = sum(int(torch.count_nonzero(a.cpu() != z))
+                                for a, z in zip(leaves(params), leaves(p0)))
+    del params, opt, p0, single, ref, batch, m
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    # the f32 gradient checks: this rank's blocks of the same seeded params
+    out["f32"] = {}
+    for name, g in spec["grads"].items():
+        gcfg = g["cfg"]
+        gctx = lmesh.make_context(mesh, gcfg)._replace(
+            ep_shardmap=gcfg.is_moe)
+        loads = []
+        route = _recording_loads(moe, loads, min_rows=g["route_rows"])
+        try:
+            gp = param_blocks(model.init_params(g["seed"], gcfg, gctx, dev),
+                              gctx)
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in g["batch"].items()}
+            coll.reset_stats()
+            sync()
+            t = time.perf_counter()
+            _, _, grads = train.grads_of(gp, batch, gcfg, gctx)
+            grads = postprocess_grads(grads, gcfg, gctx)
+            sync()
+            secs = time.perf_counter() - t
+        finally:
+            moe._route_raw = route
+        rel, worst = tp_grad_check(torch, grads, g["ref"], g["scales"],
+                                   gctx)
+        out["f32"][name] = {
+            "worst": worst, "within_tolerance": worst["rel"]
+            <= TP_TRAIN_GRAD_TOL, "grad_s": secs,
+            "wire": dict(coll.stats), "loads": loads,
+            "replicated_digest": _digest(torch, dict(
+                _replicated(grads, gctx)))}
+        del gp, grads, batch
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_grad_reference(torch, np, model, moe, cfg, seed, batch, path, dev,
+                      route_rows):
+    """The one-process f32 gradient of ``cfg``'s seeded params on
+    ``batch`` on the card, saved to ``path`` (the ranks map it); the
+    prefill loads its router saw (``moe_drops``). Returns (seconds, each
+    leaf's largest |grad| by name, the loads)."""
+    import gc
+
+    from repro_torch.launch import train
+    from repro_torch.models import postprocess_grads
+    from repro_torch.parallel.sharding import local_context
+    from repro_torch.tree import tree_map
+
+    ctx = local_context()
+    loads = []
+    route = _recording_loads(moe, loads, min_rows=route_rows)
+    try:
+        params = model.init_params(seed, cfg, ctx, dev)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _sync(torch, dev)
+        t = time.perf_counter()
+        _, _, grads = train.grads_of(params, tb, cfg, ctx)
+        grads = postprocess_grads(grads, cfg, ctx)
+        _sync(torch, dev)
+        secs = time.perf_counter() - t
+    finally:
+        moe._route_raw = route
+    del params
+    scales = {k: float(x.abs().max()) for k, x in _named_leaves(grads)}
+    torch.save(tree_map(lambda x: x.detach().to("cpu"), grads), path)
+    del grads
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return secs, scales, loads
+
+
+def phase_tp_train(torch, np, cfg_mod, model, moe, coll, smi, zero1,
+                   device="cuda"):
+    """Training under Megatron tensor parallelism, TP_TRAIN_RANKS model
+    ranks sharing the card (gloo, host-staged). Part 1: zero1_train's
+    Qwen1.5-0.5B run (bf16, remat, full depth, its global batches and
+    seed) through ``build_train_step`` on a (1, 2) mesh, against the
+    single-process steps zero1_train ran (``zero1``: its spec and
+    results; their checkpoint is still on disk). Parts 2-3: f32 gradient
+    checks at full width, Qwen1.5-0.5B (TP_TRAIN_DENSE_F32) and
+    Qwen3-MoE-30B-A3B with the EP dispatch (TP_TRAIN_MOE_F32; dropless:
+    the ranks at LM_TP_MOE_CF, the one process at E/k), each rank's
+    blocks against the one-process gradient within TP_TRAIN_GRAD_TOL of
+    each leaf's largest |grad|. No hand-written kernel is on this path.
+    Fails unless the ranks' replicated leaves are bit-equal, losses and
+    grad norms are within ZERO1_TOL of the single steps, the params'
+    change meets ZERO1_DELTA_COS (its distance from the single run's
+    change is printed), each rank's update is its replay's (norm, m and
+    v within ZERO1_HALF_TOL, the change within ZERO1_DELTA_TOL), the
+    gradients hold and neither MoE side drops an assignment."""
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.parallel.sharding import Mesh, ParallelContext
+
+    t_phase = time.perf_counter()
+    spec0, single = zero1["spec"], zero1["single"]
+    root = tempfile.mkdtemp(prefix="orca-tp-train-")
+    rng = np.random.default_rng(SEED + 97)
+    grads, refs_s, drops = {}, {}, {}
+    try:
+        for name, arch, (layers, b, s), seed in (
+                ("dense", LM_TRAIN_ARCH, TP_TRAIN_DENSE_F32, SEED + 98),
+                ("moe", LM_MOE_ARCH, TP_TRAIN_MOE_F32, SEED + 99)):
+            cfg = cfg_mod.get_config(arch).replace(num_layers=layers,
+                                                   dtype="float32")
+            # no head padding at this tp: the one-process gradient's
+            # layout is the ranks' blocks put together
+            plan = tf_mod.plan_for(cfg, ParallelContext(
+                mesh=Mesh((1, TP_TRAIN_RANKS), ("data", "model"))))
+            assert (plan.hp, plan.kv_phys) == (cfg.num_heads,
+                                               cfg.num_kv_heads), plan
+            toks = rng.integers(1, cfg.vocab_size, (b, s)).astype(np.int32)
+            batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+            path = os.path.join(root, f"{name}.pt")
+            ref_cfg = cfg
+            if cfg.is_moe:
+                ref_cfg = cfg.replace(capacity_factor=cfg.num_experts
+                                      / cfg.num_experts_per_tok)
+                cfg = cfg.replace(capacity_factor=LM_TP_MOE_CF)
+            route_rows = b * s
+            refs_s[name], scales, loads = tp_grad_reference(
+                torch, np, model, moe, ref_cfg, seed, batch, path, device,
+                route_rows)
+            if cfg.is_moe:
+                drops[name] = {"one_process": moe_drops(np, moe, ref_cfg,
+                                                        loads)}
+            grads[name] = {"cfg": cfg, "seed": seed, "batch": batch,
+                           "ref": path, "scales": scales,
+                           "route_rows": route_rows // TP_TRAIN_RANKS
+                           if cfg.is_moe else route_rows}
+        spec = {"device": device, "cfg": spec0["cfg"],
+                "shape": spec0["shape"], "seed": spec0["seed"],
+                "steps": spec0["steps"], "ref": spec0["ref"],
+                "grads": grads}
+        t = time.perf_counter()
+        ranks = coll.launch(tp_train_rank, TP_TRAIN_RANKS,
+                            backend=RANK_BACKEND, args=(spec,),
+                            timeout=RANK_TIMEOUT)
+        ranks_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    cfg = spec0["cfg"]
+    tokens = spec0["shape"].tokens
+    med = statistics.median(r0["step_s"][1:] or r0["step_s"])
+    loss_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in
+                   zip(r["losses"], single["losses"]))
+    gnorm_rel = max(abs(a - b) / abs(b) for r in ranks for a, b in
+                    zip(r["grad_norms"], single["grad_norms"]))
+    f32 = {}
+    for name in grads:
+        f32[name] = {
+            "by_rank": [{k: v for k, v in r["f32"][name].items()
+                         if k != "loads"} for r in ranks],
+            "reference_s": refs_s[name],
+            "tolerance": "max|diff| <= 1e-4 x the leaf's largest |grad|"}
+        if name in drops:
+            drops[name]["ranks"] = ep_drops(
+                np, moe, grads[name]["cfg"],
+                [r["f32"][name]["loads"] for r in ranks])
+            f32[name]["drops"] = drops[name]
+    out = {"phase": "tp_train", "nvidia_smi": smi, "arch": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "remat": cfg.remat,
+           "ranks": TP_TRAIN_RANKS, "mesh": [1, TP_TRAIN_RANKS],
+           "backend": r0["backend"],
+           "transport": "gloo over loopback TCP; CUDA tensors staged "
+                        "through page-locked host buffers (ranks share "
+                        "one card)",
+           "seq_len": spec0["shape"].seq_len,
+           "global_batch": spec0["shape"].global_batch,
+           "steps": spec0["steps"], "seconds_ranks": ranks_s,
+           "single_losses": single["losses"],
+           "single_grad_norms": single["grad_norms"],
+           "losses_by_rank": [r["losses"] for r in ranks],
+           "grad_norms_by_rank": [r["grad_norms"] for r in ranks],
+           "loss_rel_diff_vs_single": loss_rel,
+           "grad_norm_rel_diff_vs_single": gnorm_rel,
+           "replay_by_rank": [r["replay"] for r in ranks],
+           "replay_tolerance": ZERO1_HALF_TOL,
+           "delta_cos_vs_single_by_rank": [r["delta_cos_vs_single"]
+                                           for r in ranks],
+           "delta_rel_diff_vs_single_by_rank": [
+               r["delta_rel_diff_vs_single"] for r in ranks],
+           "moved_elements_by_rank": [r["moved_elements"] for r in ranks],
+           "same_init_as_single_by_rank": [r["same_init_as_single"]
+                                           for r in ranks],
+           "replicated_digests_equal_each_step": all(
+               r["digests"] == r0["digests"] for r in ranks),
+           "replicated_equal_across_ranks": r0["replicated_equal"],
+           "lrs": r0["lrs"], "tolerance": ZERO1_TOL,
+           "delta_tolerance": ZERO1_DELTA_TOL,
+           "delta_cos_min": ZERO1_DELTA_COS,
+           "step_s_by_rank": [r["step_s"] for r in ranks],
+           "step_s_median_2_on": med, "tokens_per_step": tokens,
+           "tokens_per_s": tokens / med,
+           "single_step_s": single["step_s"],
+           "collective_calls_per_step_by_rank": [
+               [w["calls"] for w in r["wire"]] for r in ranks],
+           "collective_bytes_per_step_by_rank": [
+               [w["bytes"] for w in r["wire"]] for r in ranks],
+           "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+           "f32": f32}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    failed = []
+    if not np.isfinite([x for r in ranks for x in r["losses"]
+                        + r["grad_norms"]]).all():
+        failed.append("non-finite losses or grad norms")
+    if not (out["replicated_digests_equal_each_step"]
+            and out["replicated_equal_across_ranks"]):
+        failed.append("the ranks' replicated leaves differ")
+    if max(loss_rel, gnorm_rel) > ZERO1_TOL:
+        failed.append("losses or grad norms outside ZERO1_TOL of the "
+                      "single-process steps")
+    if not all(r["same_init_as_single"] for r in ranks):
+        failed.append("the ranks' step-0 params are not the single run's")
+    if not min(out["delta_cos_vs_single_by_rank"]) >= ZERO1_DELTA_COS \
+            or not min(out["moved_elements_by_rank"]):
+        failed.append("the params' change is not the single run's")
+    if not all(max(r["grad_norm_rel_diff"], r["m_rel_diff"],
+                   r["v_rel_diff"]) <= ZERO1_HALF_TOL
+               and r["delta_rel_diff"] <= ZERO1_DELTA_TOL
+               for r in out["replay_by_rank"]):
+        failed.append("the update is not the replay's")
+    for name, res in f32.items():
+        if not all(r["within_tolerance"] for r in res["by_rank"]):
+            failed.append(f"{name}: f32 gradients outside tolerance")
+        if len({str(r["replicated_digest"]) for r in res["by_rank"]}) != 1:
+            failed.append(f"{name}: the replicated gradients differ")
+        d = res.get("drops")
+        if d and (d["one_process"]["dropped"] or d["ranks"][
+                "dropped_sending"] or d["ranks"]["dropped_at_experts"]):
+            failed.append(f"{name}: a side dropped assignments ({d})")
+    if failed:
+        raise AssertionError(f"tp_train: {'; '.join(failed)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # LM serving under Megatron tensor parallelism: ranks sharing the card
 # ---------------------------------------------------------------------------
 
@@ -4385,15 +4877,15 @@ def _recording_routes(moe, box):
     return orig
 
 
-def _recording_loads(moe, loads):
-    """Wrap ``moe._route_raw`` so each prefill-sized call (a prompt's
-    tokens or more) appends (its tokens, each expert's assignments) to
-    ``loads``. Returns the original."""
+def _recording_loads(moe, loads, min_rows=LM_TP_ENGINE["prompt_len"]):
+    """Wrap ``moe._route_raw`` so each prefill-sized call (``min_rows``
+    tokens or more: a prompt's) appends (its tokens, each expert's
+    assignments) to ``loads``. Returns the original."""
     orig = moe._route_raw
 
     def recording(params, x_flat, cfg):
         out = orig(params, x_flat, cfg)
-        if x_flat.shape[0] >= LM_TP_ENGINE["prompt_len"]:
+        if x_flat.shape[0] >= min_rows:
             n = out[1].flatten().bincount(minlength=cfg.num_experts)
             loads.append((x_flat.shape[0], n.cpu().numpy()))
         return out
@@ -4963,10 +5455,21 @@ def main() -> int:
     # kernel on its path
     phase_lm_train(torch, np, lm_configs, model, (hp, tc, er, pa, fa), ctx,
                    smi)
-    # ZeRO-1 data-parallel training: 2 ranks on the card
+    # ZeRO-1 data-parallel training: 2 ranks on the card; its
+    # single-process steps are tp_train's reference too
     gc.collect()
     torch.cuda.empty_cache()
-    phase_zero1_train(torch, np, lm_configs, model, coll, smi)
+    zero1 = {}
+    try:
+        phase_zero1_train(torch, np, lm_configs, model, coll, smi,
+                          keep=zero1)
+        # training under tensor parallelism: 2 model ranks on the card
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_tp_train(torch, np, lm_configs, model, moe, coll, smi, zero1)
+    finally:
+        if "root" in zero1:
+            shutil.rmtree(zero1["root"], ignore_errors=True)
     # tensor-parallel LM serving: 2 model ranks on the card
     gc.collect()
     torch.cuda.empty_cache()

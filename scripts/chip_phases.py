@@ -6,15 +6,18 @@ phases named, in the order given, each printing its JSON line.
     python3 scripts/chip_phases.py tx_spmd zero1_train
     python3 scripts/chip_phases.py tx_crash lm_crash
     python3 scripts/chip_phases.py lm_tp_serve
+    python3 scripts/chip_phases.py zero1_train tp_train
 
-Phases: ``tx_spmd``, ``zero1_train``, ``tx_crash``, ``lm_crash``,
-``lm_tp_serve``. The
-checks are the script's own; the kernels line and the last line are not
-printed (a phase's launches are in its own line). GPU only.
+Phases: ``tx_spmd``, ``zero1_train``, ``tp_train``, ``tx_crash``,
+``lm_crash``, ``lm_tp_serve``. ``tp_train`` holds its ranks against
+zero1_train's single-process steps: named without it, zero1_train runs
+first. The checks are the script's own; the kernels line and the last
+line are not printed (a phase's launches are in its own line). GPU only.
 """
 from __future__ import annotations
 
 import gc
+import shutil
 import sys
 import time
 from pathlib import Path
@@ -24,26 +27,14 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("tx_spmd", "zero1_train", "tx_crash", "lm_crash", "lm_tp_serve")
+PHASES = ("tx_spmd", "zero1_train", "tp_train", "tx_crash", "lm_crash",
+          "lm_tp_serve")
 
 
 def main(names) -> int:
-    import numpy as np
     import torch
 
-    from repro_torch import configs as lm_configs
-    from repro_torch.core import engine as eng
-    from repro_torch.core import ringbuf as rb
-    from repro_torch.core import transaction as tx
-    from repro_torch.fault import soak
     from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import tx_commit as tc
-    from repro_torch.models import model, moe
-    from repro_torch.parallel import collectives as coll
-    from repro_torch.parallel.sharding import local_context
-    from repro_torch.serving import kv_cache as pk
 
     unknown = [n for n in names if n not in PHASES]
     if unknown or not names:
@@ -54,23 +45,57 @@ def main(names) -> int:
         return 2
     smi = cs.phase_device(torch, _build)
     t0 = time.perf_counter()
-    for name in names:
-        gc.collect()
-        torch.cuda.empty_cache()
-        if name == "tx_spmd":
-            cs.phase_tx_spmd(torch, coll, smi)
-        elif name == "zero1_train":
-            cs.phase_zero1_train(torch, np, lm_configs, model, coll, smi)
-        elif name == "tx_crash":
-            cs.phase_tx_crash(torch, tx, tc, soak, smi)
-        elif name == "lm_tp_serve":
-            cs.phase_lm_tp_serve(torch, np, eng, rb, lm_configs, model, moe,
-                                 fa, coll, smi)
-        else:
-            cs.phase_lm_crash(torch, eng, lm_configs, model, pk, pa, fa,
-                              soak, local_context(), smi)
+    zero1 = {}  # zero1_train's single-process run, kept for tp_train
+    try:
+        for name in names:
+            gc.collect()
+            torch.cuda.empty_cache()
+            if name == "tp_train" and "spec" not in zero1:
+                run("zero1_train", smi, zero1)
+                gc.collect()
+                torch.cuda.empty_cache()
+            run(name, smi, zero1)
+    finally:
+        if "root" in zero1:
+            shutil.rmtree(zero1["root"], ignore_errors=True)
     print(f"phases done in {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
+
+
+def run(name, smi, zero1) -> None:
+    """One phase, as ``chip_smoke.main`` calls it."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs as lm_configs
+    from repro_torch.core import engine as eng
+    from repro_torch.core import ringbuf as rb
+    from repro_torch.core import transaction as tx
+    from repro_torch.fault import soak
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import tx_commit as tc
+    from repro_torch.models import model, moe
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import local_context
+    from repro_torch.serving import kv_cache as pk
+
+    if name == "tx_spmd":
+        cs.phase_tx_spmd(torch, coll, smi)
+    elif name == "zero1_train":
+        cs.phase_zero1_train(torch, np, lm_configs, model, coll, smi,
+                             keep=zero1)
+    elif name == "tp_train":
+        cs.phase_tp_train(torch, np, lm_configs, model, moe, coll, smi,
+                          zero1)
+    elif name == "tx_crash":
+        cs.phase_tx_crash(torch, tx, tc, soak, smi)
+    elif name == "lm_tp_serve":
+        cs.phase_lm_tp_serve(torch, np, eng, rb, lm_configs, model, moe, fa,
+                             coll, smi)
+    else:
+        cs.phase_lm_crash(torch, eng, lm_configs, model, pk, pa, fa, soak,
+                          local_context(), smi)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 """Training launcher: the fault-tolerant driver loop of the JAX package's
-``repro/launch/train.py``, on one device; and the data-parallel step with
-ZeRO-1 (:func:`build_train_step` under a context whose mesh has data
-ranks).
+``repro/launch/train.py``, on one device; and the step under a mesh
+(:func:`build_train_step`): ZeRO-1 over the data axis, Megatron tensor
+parallelism over the model axis, or both.
 
 It composes the substrates: the deterministic data pipeline, AdamW with
 the warmup-cosine schedule, optional int8 error-feedback gradient
@@ -77,13 +77,19 @@ def build_train_step(cfg, ctx, opt_cfg, *, compress: bool = False,
     Under a context with a mesh, every rank calls the step with the same
     global batch and takes its rows of it (:func:`local_batch`); ``opt``
     (and ``err``, then ``compress.init_error(opt.m)``) hold this rank's
-    ZeRO-1 blocks (``optim.zero1_init``) and the update is
-    ``optim.zero1_update``. Each rank's gradient is
-    weighted by its share of the batch's tokens, so the reduced gradient
-    and the loss are the global batch's: the single-device step's. MoE
-    is refused there: its capacity and load-balance statistics depend on
-    the whole batch, and the dispatch that reduces them over the data
-    axis is not wired into the stack."""
+    ZeRO-1 blocks (``optim.zero1_init``: whole at one data rank) and the
+    update is ``optim.zero1_update``. Each rank's gradient is weighted
+    by its share of the batch's tokens, so the reduced gradient and the
+    loss are the global batch's: the single-device step's. Under tensor
+    parallelism (a model axis of more than one rank) ``params``, ``opt``
+    and ``err`` are this rank's model blocks (``sharding.param_blocks``;
+    the moments the data-axis blocks of them): the gradient comes back
+    through the model-axis collectives' backward, the kv replicas are
+    tied across ranks (``models.postprocess_grads``), the clip takes the
+    global norm and the compression each whole leaf's scale. MoE is
+    refused at more than one data rank: its capacity and load-balance
+    statistics depend on the whole batch, and the dispatch that reduces
+    them over the data axis is not wired into the stack."""
     if ctx.mesh is not None:
         return _build_zero1_step(cfg, ctx, opt_cfg, compress=compress,
                                  chunk=chunk)

@@ -5,7 +5,8 @@ Physical layout (``parallel/sharding.py``): query heads padded to
 ``plan.hp``, kv heads padded to ``plan.kvp`` and replicated ``plan.repl``
 times; padded query-head outputs are masked to zero, so the function
 equals the logical unpadded model; replicated kv heads are tied at init
-and their gradients re-tied every step (:func:`tie_kv_grads`). Tensors
+and their gradients re-tied every step (:func:`tie_kv_grads`, across the
+model ranks under tensor parallelism). Tensors
 keep the JAX package's layouts: activations (B, S, H, hd), caches
 (B, Smax, KV, hd), page pools (NP, PS, KV, hd).
 
@@ -79,10 +80,14 @@ def attn_init(gen, cfg: ModelConfig, plan: HeadPlan, device):
     return p
 
 
-def tie_kv_grads(grads_attn: dict, plan: HeadPlan) -> dict:
+def tie_kv_grads(grads_attn: dict, plan: HeadPlan, ctx=None) -> dict:
     """Average the gradients of each kv replication group (``plan.repl``
     consecutive heads), so replicated kv heads stay tied; the identity at
-    ``repl == 1`` (one device)."""
+    ``repl == 1`` (one device). Gradients of the whole layout are tied in
+    place. A tensor-parallel rank's blocks (``plan.kv_phys / tp`` kv
+    heads: a group spans model ranks) are gathered over ``ctx``'s model
+    axis, tied, and this rank's block taken back, so every rank holding a
+    replica holds the same bits."""
     if plan.repl == 1:
         return grads_attn
     out = dict(grads_attn)
@@ -91,12 +96,17 @@ def tie_kv_grads(grads_attn: dict, plan: HeadPlan) -> dict:
             continue
         g = out[name]
         ax = g.dim() - 2  # the kv-head axis: (..., kv_phys, head_dim)
+        blocks = g.shape[ax] != plan.kv_phys and coll.tensor_parallel(ctx)
+        if blocks:
+            g = coll.model_gather(g, ctx, ax)
         shape = list(g.shape)
         assert shape[ax] == plan.kv_phys, (name, shape, plan)
         grouped = g.reshape(shape[:ax] + [plan.kvp, plan.repl]
                             + shape[ax + 1:])
         mean = grouped.mean(dim=ax + 1, keepdim=True)
-        out[name] = mean.expand(grouped.shape).reshape(g.shape)
+        tied = mean.expand(grouped.shape).reshape(g.shape)
+        out[name] = coll.model_block(tied, ctx, ax).contiguous() \
+            if blocks else tied
     return out
 
 
@@ -110,9 +120,11 @@ def _proj(x, w):
     return matmul(x, w.reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
 
 
-def qkv(params, x, cfg: ModelConfig, plan: HeadPlan, positions):
+def qkv(params, x, cfg: ModelConfig, plan: HeadPlan, positions, ctx=None):
     """x: (B, S, D) -> q (B,S,hp,hd), k/v (B,S,kv_phys,hd), rope applied,
-    in the config's dtype."""
+    in the config's dtype. Under tensor parallelism ``x`` enters the
+    rank's head-split products through ``collectives.model_copy``."""
+    x = coll.model_copy(x, ctx)
     q = _proj(x, params["wq"])
     k = _proj(x, params["wk"])
     v = _proj(x, params["wv"])

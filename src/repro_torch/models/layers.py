@@ -12,7 +12,10 @@ has more than one rank; each rank holds its blocks, ``sharding.
 param_blocks``) the MLP's ``w_gate``/``w_in`` are split by columns and
 ``w_out`` by rows, whose f32 partial product is summed over the model
 axis before the cast, as JAX's GSPMD sums the ``preferred_element_type``
-output; the embedding and the head are split over the vocab.
+output; the embedding and the head are split over the vocab. Under
+autograd the forms of ``parallel.collectives`` carry the gradients: the
+input of every split product goes through ``model_copy``, whose backward
+sums the ranks' partial gradients over the model axis.
 """
 from __future__ import annotations
 
@@ -132,8 +135,11 @@ def mlp_init(gen, cfg: ModelConfig, device, d_ff: Optional[int] = None):
 def mlp_apply(params, x, act: str = "silu", ctx=None, seq_dim=None):
     """The gated MLP. Under tensor parallelism ``params`` hold this rank's
     ``d_ff`` block and the ``w_out`` partials meet in a sum over the model
-    axis (with ``seq_dim``, its reduce-scatter along the sequence)."""
+    axis (with ``seq_dim``, its reduce-scatter along the sequence); ``x``
+    enters the column-split products through ``collectives.model_copy``
+    (its gradient summed over the model axis)."""
     dt = x.dtype
+    x = coll.model_copy(x, ctx)
     g = matmul(x, params["w_gate"])
     h = matmul(x, params["w_in"])
     y = act_fn(act)(g) * h
@@ -226,7 +232,9 @@ def lm_head_apply(params, x, cfg: ModelConfig, embed_params=None, ctx=None):
     set to -1e30; shape (B, S, Vp) or (B, S, K, Vp). Under tensor
     parallelism the rank's vocab columns only, (B, S, Vp / tp): the dead
     columns are those whose global index is past the vocab
-    (``collectives.model_gather`` on the last dim makes them whole)."""
+    (``collectives.model_gather`` on the last dim makes them whole), and
+    ``x`` enters the product through ``collectives.model_copy``."""
+    x = coll.model_copy(x, ctx)
     if cfg.tie_embeddings:
         logits = matmul(x, embed_params["tok"].T)
     elif cfg.num_codebooks:

@@ -16,8 +16,10 @@ forward, prefill and ring-cache decode: the embedding and the head are
 vocab-parallel, and the logits returned are whole (the vocab shards
 gathered), so a greedy token is the whole row's argmax and its ties go
 to the lowest global index, as on one device. :func:`loss_fn` takes a
-vocab-parallel log-sum-exp and gold logit. Forward only: training at
-tp > 1, and the paged path under a mesh, are refused."""
+vocab-parallel log-sum-exp and gold logit, and its gradient comes back
+through the model-axis forms' backward (``parallel.collectives``);
+:func:`postprocess_grads` ties the kv replicas across the model ranks.
+The paged path under a mesh is refused."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
@@ -170,13 +172,14 @@ def loss_fn(params, batch, cfg: ModelConfig, ctx: ParallelContext, *,
 def postprocess_grads(grads, cfg: ModelConfig, ctx: ParallelContext):
     """Re-tie the kv-replica gradients (``attention.tie_kv_grads``) so
     replicated physical kv heads stay equal; the identity at world size
-    1."""
+    1. Under tensor parallelism ``grads`` are this rank's blocks and a
+    replication group spans model ranks (tied across them)."""
     plan = tf.plan_for(cfg, ctx)
     if cfg.attn_free or plan.repl == 1:
         return grads
     layers = dict(grads["layers"])
     if "attn" in layers:
-        layers["attn"] = tie_kv_grads(layers["attn"], plan)
+        layers["attn"] = tie_kv_grads(layers["attn"], plan, ctx)
     return {**grads, "layers": layers}
 
 

@@ -27,6 +27,12 @@ What keeps the port equal to JAX:
 * the combine adds each token's k weighted outputs one after another, in
   order j = 0..k-1, from f32 zeros: no atomics, so two runs on the card
   give the same bits.
+
+Under autograd at tp > 1 the dispatches differentiate through the forms
+of ``parallel.collectives``: the inputs of rank-local work (the capacity
+buffer's tokens, the gates of a partial combine, the EP router) go
+through ``model_copy``, the model-axis sums' backward is the identity,
+the EP all-to-alls' the reverse all-to-all.
 """
 from __future__ import annotations
 
@@ -195,14 +201,17 @@ def moe_apply(params, x, cfg: ModelConfig, ctx=None, *,
     gates, idx, aux = _route(params, x_flat, cfg,
                              ctx if tp and ctx.dp > 1 else None)
     cap = t if no_drop else _capacity(capacity_tokens or t, cfg, e)
+    # the rank-local work's inputs: their gradients summed over the model
+    # axis (the identity without tensor parallelism)
+    x_loc = coll.model_copy(x_flat, ctx)
     if tp and ctx.use_ep:  # this rank's experts; the partial combines summed
         e_loc = params["w_gate"].shape[0]
         first = coll.model_rank(ctx) * e_loc
         y = coll.model_psum(_experts_local(
-            params, x_flat, gates, idx, cap, cfg,
+            params, x_loc, coll.model_copy(gates, ctx), idx, cap, cfg,
             experts=(first, first + e_loc)), ctx)
     else:  # all experts, or every expert's d_ff block summed in the FFN
-        y = _experts_local(params, x_flat, gates, idx, cap, cfg, ctx=ctx)
+        y = _experts_local(params, x_loc, gates, idx, cap, cfg, ctx=ctx)
     return y.to(x.dtype).reshape(shape), aux
 
 
@@ -280,7 +289,10 @@ def moe_apply_tp_shardmap(params, x, cfg: ModelConfig, ctx):
     aux = cfg.num_experts * torch.sum(coll.pmean(me, mesh, axes)
                                       * coll.pmean(ce, mesh, axes))
     cap = _capacity(t, cfg, cfg.num_experts)
-    y = _experts_local(params, xf, gates, idx, cap, cfg)
+    # the d_ff blocks' work is rank-local: its inputs' gradients are
+    # summed over the model axis, the psum's backward is the identity
+    y = _experts_local(params, coll.model_copy(xf, ctx),
+                       coll.model_copy(gates, ctx), idx, cap, cfg)
     y = coll.psum(y, mesh, ctx.model_axis)  # the d_ff partial sums
     return y.to(x.dtype).reshape(b_loc, s, d), aux
 
@@ -305,10 +317,12 @@ def moe_apply_ep_shardmap(params, x, cfg: ModelConfig, ctx):
     t_loc = b_loc * s
     t_m = t_loc // tp
     dev = x.device
-    r = coll.axis_index(mesh, m)
-    xm = x.reshape(t_loc, d)[r * t_m:(r + 1) * t_m]
+    # this rank's tokens (backward: the ranks' gradient blocks gathered);
+    # the router sees only them, so its gradient is summed over the axis
+    xm = coll.model_block(x.reshape(t_loc, d), ctx, 0)
+    router = {"router": coll.model_copy(params["router"], ctx)}
 
-    gates, idx, me, ce = _route_raw(params, xm, cfg)
+    gates, idx, me, ce = _route_raw(router, xm, cfg)
     axes = (m,) + tuple(ctx.batch_axes)
     me = coll.pmean(me, mesh, axes)
     ce = coll.pmean(ce, mesh, axes)

@@ -332,7 +332,9 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
     Under tensor parallelism ``params`` and ``state`` are this rank's
     blocks. ``sp`` (stateless, tensor-parallel): ``x`` and the result are
     this rank's block of the sequence, gathered before attention and the
-    MLP and reduce-scattered after them.
+    MLP and reduce-scattered after them; the norms' replicated scales see
+    only that block, so their gradients are summed over the model axis
+    (``collectives.model_copy``).
 
     The mode is inferred: ``state is None`` -> stateless forward;
     seq == 1 with state -> decode; else prefill into the ring state. With
@@ -349,7 +351,11 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
     check_family(cfg)
     seq = 1 if sp else None  # the sequence dim of a reduce-scatter
     decode = state is not None and x.shape[1] == 1
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    ln1, ln2 = params["ln1"], params["ln2"]
+    if sp:  # replicated scales applied to this rank's block of the sequence
+        ln1, ln2 = ({"scale": coll.model_copy(p["scale"], ctx)}
+                    for p in (ln1, ln2))
+    h = rmsnorm(ln1, x, cfg.norm_eps)
     if sp:
         h = coll.model_gather(h, ctx, 1)
     S = h.shape[1]
@@ -371,7 +377,7 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
                 params["attn"], h, cfg, plan, state, cur_pos, ctx)
             new_state.update(att_state)
     else:
-        q, k, v = attn_mod.qkv(params["attn"], h, cfg, plan, positions)
+        q, k, v = attn_mod.qkv(params["attn"], h, cfg, plan, positions, ctx)
         if cfg.use_pallas_flash and (state is not None or emit_kv) \
                 and S % min(cfg.flash_block, S) == 0:
             # the prefill flash kernel (forward only)
@@ -408,7 +414,7 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
             new_state["s"] = s_new
 
     x = x + att
-    h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    h2 = rmsnorm(ln2, x, cfg.norm_eps)
     if sp:
         h2 = coll.model_gather(h2, ctx, 1)
     if cfg.is_moe:

@@ -12,10 +12,18 @@ written out per rank: reduce-scatter each gradient along that dim (a
 leaf with none is all-reduced and updated whole on every rank), clip by
 the global norm (the squares of the blocks all-reduced), update this
 rank's block of the parameter and its moments, all-gather the
-parameter. Every rank ends with the same parameter bits."""
+parameter. Every rank ends with the same parameter bits.
+
+Under Megatron tensor parallelism (a model axis of more than one rank)
+each rank holds its model blocks of the parameters and gradients
+(``sharding.param_specs``): :func:`zero1_update`'s global norm sums the
+squares of the split leaves over the model axis and counts the
+replicated ones once (the padded global arrays' norm, kv replicas
+included), and a ZeRO-1 moment is the data-axis block of the rank's
+model block (the whole block at one data rank)."""
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -55,6 +63,17 @@ def init(params, cfg: AdamWConfig) -> OptState:
     dev = leaves(params)[0].device
     return OptState(m=tree_map(zeros, params), v=tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def model_split(tree, ctx: Optional[ParallelContext]):
+    """Each leaf of a params-shaped tree: True where the model axis splits
+    it (a rank holds a block), by ``sharding.param_specs``; all False
+    without tensor parallelism."""
+    if not coll.tensor_parallel(ctx):
+        return tree_map(lambda _: False, tree)
+    return tree_map(
+        lambda sp: any(ctx.model_axis in spec_axes(e) for e in sp),
+        param_specs(tree, ctx))
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -135,12 +154,13 @@ def state_specs(param_specs, params_abs, ctx: ParallelContext) -> OptState:
 
 def zero1_dims(params, ctx: ParallelContext):
     """Each leaf's ZeRO-1 dimension (None: the leaf stays whole), from
-    :func:`zero1_spec` of its parameter spec. Data parallelism only: the
-    model axis is 1 and the params are whole on every rank (tensor
-    parallelism and fsdp are not ported)."""
-    if ctx.mesh is not None and (ctx.tp != 1 or ctx.fsdp):
-        raise NotImplementedError(
-            "ZeRO-1 here is data-parallel only (model axis 1, no fsdp)")
+    :func:`zero1_spec` of its parameter spec. ``params`` are this rank's
+    model blocks (the whole leaves at tp 1): a model-split dimension is
+    never the data axis's, and the others keep their global sizes, so the
+    dims are those of JAX's ``state_specs``. fsdp is not ported."""
+    if ctx.mesh is not None and ctx.fsdp:
+        raise NotImplementedError("ZeRO-1 with fsdp parameter blocks is "
+                                  "not ported")
     axis = ctx.data_axes[-1]
 
     def dim_of(sp, p):
@@ -178,29 +198,38 @@ def zero1_update(grads, state: OptState, params, lr, cfg: AdamWConfig,
     the reduced gradient blocks with their residuals ``err`` (blocks, as
     the moments), each block against its whole leaf's scale, so the
     payloads and updates are those of one device compressing the whole
-    gradient. Returns (params, state, err, {"grad_norm"}): the
-    params whole and equal on every rank."""
+    gradient. Returns (params, state, err, {"grad_norm"}): the params
+    whole (this rank's model blocks under tensor parallelism) and equal
+    on every rank of the data axis."""
     mesh, axis = ctx.mesh, ctx.data_axes[-1]
+    tp = coll.tensor_parallel(ctx)
     dims = zero1_dims(params, ctx)
     red = tree_map(
         lambda g, d: coll.psum(g.float(), mesh, axis) if d is None
         else coll.psum_scatter(g.float(), mesh, axis, d), grads, dims)
     if compress is not None:
-        # one scale a logical leaf: the max over its blocks (the whole
-        # leaves are equal on every rank, so their max is their own)
+        # one scale a logical leaf: the max over its blocks, data and
+        # model (the whole leaves are equal on every rank, so their max is
+        # their own)
+        axes = (axis, ctx.model_axis) if tp else axis
         red, err = compress(red, err,
-                            amax=lambda mx: coll.pmax(mx, mesh, axis))
-    # the global squared norm: the blocks' squares summed over the axis,
-    # the whole leaves' once (each rank holds them all)
-    sq_blk = torch.zeros((), dtype=F32, device=leaves(params)[0].device)
-    sq_all = torch.zeros_like(sq_blk)
-    for g, d in zip(leaves(red), leaves(dims)):
-        s2 = torch.sum(torch.square(g))
-        if d is None:
-            sq_all = sq_all + s2
-        else:
-            sq_blk = sq_blk + s2
-    gnorm = torch.sqrt(coll.psum(sq_blk, mesh, axis) + sq_all)
+                            amax=lambda mx: coll.pmax(mx, mesh, axes))
+    # the global squared norm: each leaf's squares summed over the axes
+    # that split it (data: its ZeRO-1 dim; model: its spec), a whole
+    # leaf's once (each rank holds it all)
+    zero = torch.zeros((), dtype=F32, device=leaves(params)[0].device)
+    sq = {(d, m): zero for d in (True, False) for m in (True, False)}
+    for g, d, m in zip(leaves(red), leaves(dims),
+                       leaves(model_split(params, ctx))):
+        sq[d is not None, m] = sq[d is not None, m] + torch.sum(
+            torch.square(g))
+    by_model = torch.stack([sq[True, True], sq[False, True]])
+    if tp:
+        by_model = coll.psum(by_model, mesh, ctx.model_axis)
+    by_data = coll.psum(torch.stack([sq[True, False], by_model[0]]), mesh,
+                        axis)
+    gnorm = torch.sqrt(by_data[0] + by_data[1] + by_model[1]
+                       + sq[False, False])
     scale = _clip_scale(gnorm, cfg)
     step = state.step + 1
     dt = dtype_of(cfg.state_dtype)

@@ -15,9 +15,23 @@ calls on the process group of one axis of a running
 - :func:`all_to_all` — split and concatenate on dim 0, ``tiled=False``;
 - :func:`all_gather` — ``tiled=True`` on a dim; :func:`psum_scatter`, its
   reverse (reduce-scatter, ``tiled=True``), for the ZeRO-1 update;
-- :func:`model_psum`, :func:`model_reduce`, :func:`model_gather`,
-  :func:`model_block` — the same over a ``ParallelContext``'s model axis,
-  as the tensor-parallel forward uses them (the identity at tp 1).
+- :func:`model_psum`, :func:`model_copy`, :func:`model_reduce`,
+  :func:`model_gather`, :func:`model_block` — Megatron's forms over a
+  ``ParallelContext``'s model axis (the identity at tp 1).
+
+Gradients. ``psum``/``pmean``, ``all_gather``, ``psum_scatter`` and
+``all_to_all`` of a tensor that needs a gradient run as
+``torch.autograd.Function``s over the same transport, under one
+invariant: a tensor that every rank of the axis holds whole carries its
+whole gradient on every rank. So a sum's backward is the identity, a
+gather's takes this rank's block, a reduce-scatter's is an all-gather,
+an all-to-all's is the reverse all-to-all; :func:`model_copy` (identity
+forward, a sum backward) marks the input of every product whose weight
+the model axis splits, and :func:`model_block`'s backward is an
+all-gather. :func:`pmax` takes no gradient. Every rank issues the
+backward's collectives in the same order (one program, one graph), so a
+recomputation under ``torch.utils.checkpoint`` reissues the forward's at
+the same point on every rank.
 
 Transport. The caller names the backend when it launches the ranks, and
 nothing picks or falls back to another. Ranks with a card each use
@@ -165,16 +179,39 @@ def _all_reduce(x: torch.Tensor, mesh, axis: str,
     return _back(w, x)
 
 
+def _grad(x: torch.Tensor) -> bool:
+    """True when autograd records an operation on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Sum(torch.autograd.Function):
+    """A sum over axes whose result every rank holds whole: the partials'
+    gradient is the result's (identity backward)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 def psum(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     """``jax.lax.psum`` over one axis or a tuple of them (one all-reduce
-    an axis, in order). Every rank gets the same bits."""
+    an axis, in order). Every rank gets the same bits. Under autograd the
+    backward is the identity (the module's invariant)."""
+    if _grad(x):
+        return _Sum.apply(x, mesh, _axes(axis))
     for a in _axes(axis):
         x = _all_reduce(x, mesh, a)
     return x
 
 
 def pmax(x: torch.Tensor, mesh, axis) -> torch.Tensor:
-    """``jax.lax.pmax`` over one axis or a tuple of them."""
+    """``jax.lax.pmax`` over one axis or a tuple of them; no gradient
+    flows through it (a log-sum-exp's max cancels out)."""
+    x = x.detach()
     for a in _axes(axis):
         x = _all_reduce(x, mesh, a, dist.ReduceOp.MAX)
     return x
@@ -185,10 +222,27 @@ def pmean(x: torch.Tensor, mesh, axis) -> torch.Tensor:
     return psum(x, mesh, axis) / _size(mesh, _axes(axis))
 
 
+class _AllToAll(torch.autograd.Function):
+    """Its own transpose: the gradient goes back by the reverse
+    all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``jax.lax.all_to_all(x, axis, split_axis=0, concat_axis=0,
     tiled=False)``: ``x`` is (n, ...) for an axis of n ranks; block j goes
-    to rank j, and block i of the result came from rank i."""
+    to rank j, and block i of the result came from rank i. Under autograd
+    the backward is the reverse all-to-all."""
+    if _grad(x):
+        return _AllToAll.apply(x, mesh, axis)
     n = mesh.shape[axis]
     if x.shape[0] != n:
         raise ValueError(f"all_to_all: dim 0 is {x.shape[0]}, axis {n}")
@@ -203,9 +257,65 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _back(out, x)
 
 
+def _own_block(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of a tensor split over ``axis``."""
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {axis} ({n})")
+    k = x.shape[dim] // n
+    return x.narrow(dim, mesh.coord(axis) * k, k)
+
+
+class _Gather(torch.autograd.Function):
+    """A gather whose result every rank holds whole: this rank's block of
+    the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_own_block(g, ctx.mesh, ctx.axis, ctx.dim).contiguous(),
+                None, None, None)
+
+
+class _Block(torch.autograd.Function):
+    """This rank's block of a tensor every rank holds whole: the ranks'
+    gradient blocks gathered."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _own_block(x, mesh, axis, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """A reduce-scatter of partials: each partial's gradient is the
+    gathered gradient of the blocks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return psum_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: the ranks'
-    blocks concatenated along ``dim`` in axis order."""
+    blocks concatenated along ``dim`` in axis order. Under autograd the
+    backward takes this rank's block."""
+    if _grad(x):
+        return _Gather.apply(x, mesh, axis, dim)
     n = mesh.shape[axis]
     if n == 1:
         return x.clone()
@@ -221,7 +331,10 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
 def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim,
     tiled=True)``: the sum over the axis, of which this rank keeps block
-    ``axis_index`` along ``dim``."""
+    ``axis_index`` along ``dim``. Under autograd the backward is an
+    all-gather."""
+    if _grad(x):
+        return _ReduceScatter.apply(x, mesh, axis, dim)
     n = mesh.shape[axis]
     if x.shape[dim] % n:
         raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} "
@@ -240,12 +353,11 @@ def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor
 # ---------------------------------------------------------------------------
 # Megatron tensor parallelism over a context's model axis
 # ---------------------------------------------------------------------------
-# The forms the model's forward needs, on ``ctx.model_axis`` of a running
+# The forms the model needs, on ``ctx.model_axis`` of a running
 # ``ctx.mesh`` (a ``sharding.ParallelContext``). Each is the identity (or
 # the whole tensor) when ``ctx`` splits nothing: no mesh, or a model axis
-# of one rank. They are forward-only: the staged transport is outside
-# autograd, so a tensor that needs a gradient is refused here rather than
-# left without one.
+# of one rank. Their gradients keep the module's invariant: a tensor
+# every model rank holds whole carries its whole gradient on every rank.
 
 def tensor_parallel(ctx) -> bool:
     """True when ``ctx`` splits the model over more than one rank."""
@@ -258,53 +370,66 @@ def model_rank(ctx) -> int:
         ctx.mesh.coord(ctx.model_axis)
 
 
-def _forward_only(x: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "tensor parallelism is forward-only: the model-axis "
-            "collectives have no backward (training at tp > 1 is not "
-            "ported)")
-
-
 def model_psum(x: torch.Tensor, ctx) -> torch.Tensor:
-    """The sum over the model axis of a row-split product's partials."""
+    """The sum over the model axis of a row-split product's partials;
+    backward the identity."""
     if not tensor_parallel(ctx):
         return x
-    _forward_only(x)
     return psum(x, ctx.mesh, ctx.model_axis)
+
+
+class _Copy(torch.autograd.Function):
+    """Megatron's *f*: identity forward, a sum over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axis), None, None
+
+
+def model_copy(x: torch.Tensor, ctx) -> torch.Tensor:
+    """``x``, which every model rank holds whole, as the input of
+    rank-local work: a product whose weight the model axis splits, or a
+    replicated parameter applied to this rank's block of the sequence.
+    Forward the identity; backward the sum over the model axis of the
+    ranks' partial gradients (Megatron's *f*)."""
+    if not (tensor_parallel(ctx) and _grad(x)):
+        return x
+    return _Copy.apply(x, ctx.mesh, ctx.model_axis)
 
 
 def model_reduce(x: torch.Tensor, ctx, seq_dim=None) -> torch.Tensor:
     """A row-split product's partials summed over the model axis: whole
     (:func:`model_psum`), or with ``seq_dim`` this rank's block of the
     sum along the sequence (Megatron sequence parallelism's
-    reduce-scatter, :func:`psum_scatter`)."""
+    reduce-scatter, :func:`psum_scatter`; backward an all-gather)."""
     if seq_dim is None or not tensor_parallel(ctx):
         return model_psum(x, ctx)
-    _forward_only(x)
     return psum_scatter(x, ctx.mesh, ctx.model_axis, seq_dim)
 
 
 def model_gather(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
     """The model ranks' blocks concatenated along ``dim``: a sequence-
-    sharded activation made whole, or the vocab shards of the logits."""
+    sharded activation made whole, or the vocab shards of the logits.
+    Backward takes this rank's block."""
     if not tensor_parallel(ctx):
         return x
-    _forward_only(x)
     return all_gather(x, ctx.mesh, ctx.model_axis, dim)
 
 
 def model_block(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
     """This rank's block along ``dim`` of a tensor every model rank holds
-    whole (no communication)."""
+    whole: no communication forward; backward the ranks' gradient blocks
+    gathered."""
     if not tensor_parallel(ctx):
         return x
-    n = ctx.tp
-    if x.shape[dim] % n:
-        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
-                         f"over the model axis ({n})")
-    k = x.shape[dim] // n
-    return x.narrow(dim, model_rank(ctx) * k, k)
+    if _grad(x):
+        return _Block.apply(x, ctx.mesh, ctx.model_axis, dim)
+    return _own_block(x, ctx.mesh, ctx.model_axis, dim)
 
 
 # ---------------------------------------------------------------------------

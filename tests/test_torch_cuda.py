@@ -1782,6 +1782,29 @@ def test_host_staged_collectives_match_cpu(dev):
                 assert a[k] == b[k], k
 
 
+def test_tensor_parallel_form_backwards_on_the_card(dev):
+    """Each model-axis form's backward (``model_psum``, ``model_copy``,
+    ``model_reduce``, ``model_gather``, ``model_block``, ``all_to_all``)
+    on CUDA tensors, over 2 ranks sharing the card (gloo, host-staged),
+    against the one-process gradient of the same function on the card
+    within 1e-6 of its scale; a tensor both ranks hold whole gets the
+    same gradient bits on both."""
+    import torch_tp_train_ranks as ttr
+    from repro_torch.parallel import collectives as coll
+
+    out = coll.launch(ttr.forms_rank, 2, backend="gloo", args=("cuda",),
+                      timeout=300)
+    for r, res in enumerate(out):
+        assert set(res) == set(ttr.FORMS)
+        for form, (got, want) in res.items():
+            for a, b in zip(got, want):
+                assert a.shape == b.shape, (r, form)
+                scale = max(float(np.abs(b).max()), 1e-30)
+                assert float(np.abs(a - b).max()) <= 1e-6 * scale, (r, form)
+    for form in ("model_copy", "model_block"):
+        np.testing.assert_array_equal(out[0][form][0][0], out[1][form][0][0])
+
+
 def test_elastic_resume_defaults_to_the_card(dev, tmp_path):
     """``elastic.resume`` and ``restore`` from meta templates with no
     ``device`` put every leaf on the card, as JAX's resume places its

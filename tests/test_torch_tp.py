@@ -367,11 +367,12 @@ def test_gspmd_moe_refuses_data_parallel_drops():
         moe.moe_apply(params, x, cfg, ctx)
 
 
-def test_tensor_parallel_refuses_what_it_does_not_run():
+def test_tensor_parallel_refuses_what_it_does_not_run(monkeypatch):
     """tp > 1 refuses the families it does not split yet, a sequence the
-    model axis does not divide under sp, the paged path under a mesh, a
-    data-parallel engine, and gradients (the collectives have no
-    backward)."""
+    model axis does not divide under sp, the paged path under a mesh and
+    a data-parallel engine; gradients flow (the model-axis collectives
+    have a backward, held against one process in
+    ``test_torch_tp_train.py``)."""
     from repro_torch.core import engine as eng
     from repro_torch.launch import serve
     from repro_torch.models import model, transformer as tf
@@ -392,8 +393,15 @@ def test_tensor_parallel_refuses_what_it_does_not_run():
     dp_ctx = ParallelContext(mesh=Mesh((2, 2), ("data", "model")))
     with pytest.raises(NotImplementedError, match="model axis only"):
         serve.engine_step(cfg, dp_ctx, eng.LMEngineConfig(), {}, "cpu")
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        coll.model_psum(torch.ones(2, requires_grad=True), ctx)
+    # model_psum at tp 2 now returns a gradient: the transport stands in
+    # for two ranks holding equal partials (the sum doubles them), and the
+    # backward is the identity
+    x = torch.ones(2, requires_grad=True)
+    monkeypatch.setattr(coll, "_all_reduce", lambda t, mesh, axis: 2 * t)
+    y = coll.model_psum(x, ctx)
+    assert torch.equal(y, torch.full((2,), 2.0)) and y.requires_grad
+    (g,) = torch.autograd.grad(torch.sum(y * 3), [x])
+    assert torch.equal(g, torch.full((2,), 3.0))
 
 
 def test_vocab_parallel_greedy_ties_go_to_the_lowest_global_index(ranks):
