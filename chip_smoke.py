@@ -8,9 +8,11 @@ Qwen3-MoE-30B-A3B and Qwen2-VL-7B (paged), Hymba-1.5B and RWKV6-1.6B
 ORCA engine and the hand-written CUDA kernels, at deployment sizes,
 with the fault and durability layer (fault injection, chain failover,
 snapshots, the WAL and crash recovery) on the TX, KVS and LM paths;
-trains Qwen1.5-0.5B through the port's training launcher; serves both
-LM models under tensor parallelism on two ranks sharing the card; and
-holds every kernel against its plain PyTorch version.
+trains Qwen1.5-0.5B through the port's training launcher, data-parallel
+(ZeRO-1) and tensor-parallel, and Qwen3-MoE-30B-A3B's gradient over two
+data ranks; serves both LM models under tensor parallelism on two ranks
+sharing the card, through the dense and the paged engine; and holds
+every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -100,8 +102,9 @@ Phases, each printing one JSON line:
                   the paged walk over 4 sequences of 16,384 tokens (bf16);
                   both again at the MoE model's heads (32 q / 4 kv, so
                   G = 8, the paged kernel's largest group), bf16, and
-                  flash at one of lm_tp_serve's 2 ranks' heads (20 q /
-                  4 kv and 16 q / 2 kv); each
+                  both at one of lm_tp_serve's 2 ranks' heads (flash
+                  20 q / 4 kv and 16 q / 2 kv, the paged walk 4 kv of G
+                  5 and 2 kv of G 8); each
                   with its library call's device time where there is one,
                   the paged cases with their split count;
 16. lm_serve_f32 — Qwen2.5-14B at full width cut to 4 layers, f32: the
@@ -113,7 +116,7 @@ Phases, each printing one JSON line:
                   host cold tier: a kill mid-decode, recovery bit for bit
                   the never-crashed twin's, token streams byte-identical to
                   the twin's and to a plain engine's (``ref``);
-18. lm_serve    — 8 of its 48 layers (widths kept) in bf16 with the
+18. lm_serve    — 6 of its 48 layers (widths kept) in bf16 with the
                   flash prefill, 96
                   requests (512-token prompts, caps up to 128) through 32
                   slots: the kernel engine (the launch counts), the plain
@@ -122,7 +125,7 @@ Phases, each printing one JSON line:
                   decide at least 10% (and 64) of its rows with equal
                   argmax, and a per-layer walk check of the live pool;
 19. lm_moe_serve — the same for Qwen3-MoE-30B-A3B at full width cut to
-                  8 of its 48 layers, in bf16 (128 experts, top 8; 11
+                  6 of its 48 layers, in bf16 (128 experts, top 8; 11
                   GB of weights), after the dense weights are freed: the
                   same engine and requests, the same checks, and the share
                   of (token, layer) top-8 expert sets on which the kernel
@@ -174,7 +177,7 @@ Phases, each printing one JSON line:
                   No hand-written kernel runs on this path;
 25. zero1_train  — Qwen1.5-0.5B at full width and depth in bf16 (remat
                   on), a global batch of 2 x 4,096 tokens over 2 data
-                  ranks sharing the card (gloo, host-staged), 3 ZeRO-1
+                  ranks sharing the card (gloo, host-staged), 2 ZeRO-1
                   steps: the ranks' params bit-equal after every step;
                   losses, grad norms, params and first moment against the
                   single-process step on the global batch (the training
@@ -182,7 +185,16 @@ Phases, each printing one JSON line:
                   reference (the ranks' arithmetic in one process), the
                   params' change from step 0 included; rank 0 saves and
                   a one-rank ``elastic.resume`` restores params and
-                  optimizer state bit for bit.
+                  optimizer state bit for bit; then, on the same ranks
+                  and mesh (its own line, dp_moe_train), Qwen3-MoE-30B-A3B
+                  at full width cut to 2 layers in f32, GSPMD moe_apply
+                  at the config's capacity factor 1.25, 2 x 512 tokens,
+                  each rank its rows: the whole batch's capacity,
+                  dispatch positions and router statistics; the ranks'
+                  gradients summed (reduce-scattered) within 1e-4 of
+                  each leaf's largest |grad| of the one-process gradient
+                  of the whole batch, the loss and aux within 1e-5, and
+                  the drops of both sides equal and above 0;
 26. tp_train     — the same Qwen1.5-0.5B run (its seed and batches) on 2
                   model ranks sharing the card, mesh (1, 2), through the
                   launcher's ``build_train_step``: losses and grad norms
@@ -217,8 +229,18 @@ Phases, each printing one JSON line:
                   expert-set agreement reported); each
                   model at 2 layers in f32 against the one-process
                   f32 run within 1e-5 of each value's scale (logits and
-                  ring caches). The one-process run comes first, its
-                  weights freed before the ranks start.
+                  ring caches); and the paged engine on the same ranks
+                  and requests (each rank's page pool its kv heads, the
+                  decode walk paged_attention_stats at the rank's shape,
+                  KVH 4 G 5 and KVH 2 G 8): the ranks' responses equal,
+                  its teacher-forced rows (prefill_kv, then 24
+                  paged_decode_steps) held to the one-process paged
+                  run's by the same rule, the paged launches = layers x
+                  steps and the flash launches = layers x admission
+                  steps on each rank, each rank's live pool walked by the
+                  kernel against its plain version. The one-process runs
+                  come first, their weights freed before the ranks
+                  start.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch raises and exits non-zero before the last line. Without a
@@ -305,8 +327,9 @@ MERCI_RTOL, MERCI_ATOL = 1e-3, 1e-4  # tests/test_dlrm.py
 # qwen2_5_14b.py: 48 layers, d_model 5120, 40 q / 8 kv heads, hd 128,
 # d_ff 13824, vocab 152064, bf16), random weights from the seed
 LM_ARCH = "qwen2.5-14b"
-LM_LAYERS = 8  # lm_serve cut from 48 (widths kept), to make room for the
-# multi-rank phases within the script's time limit (12 before tp_train)
+LM_LAYERS = 6  # lm_serve cut from 48 (widths kept), to make room for the
+# multi-rank phases within the script's time limit (12 before tp_train,
+# 8 before dp_moe_train and the paged lm_tp_serve)
 LM_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=128,
                  slots=32, admit_per_step=8, paged=True, page_size=16)
 LM_REQUESTS = 96
@@ -322,7 +345,8 @@ LM_LONG = (4, 16384)
 # (G = 8) in lm_kernels
 LM_MOE_ARCH = "qwen3-moe-30b-a3b"
 LM_MOE_REQUESTS = 48  # cut from lm_serve's 96 to keep the script's time
-LM_MOE_LAYERS = 8  # cut from 48 (widths kept) for the script's time
+LM_MOE_LAYERS = 6  # cut from 48 (widths kept) for the script's time (8
+# before dp_moe_train and the paged lm_tp_serve)
 LM_MOE_HEADS = (32, 4)
 # the other four families, each at full width and depth in bf16 with
 # random weights from the seed (src/repro_torch/configs/): Qwen2-VL-7B (28
@@ -390,7 +414,9 @@ LM_TRAIN_F32_TOL = 1e-5
 # scale plus 2 x the summed rate
 RANK_BACKEND = "gloo"
 RANK_TIMEOUT = 600  # s, each multi-rank phase's launch
-ZERO1_RANKS, ZERO1_BATCH, ZERO1_STEPS = 2, 2, 3
+# ZERO1_STEPS cut from 3 to 2 (tp_train's steps with it) for the
+# script's time when dp_moe_train joined zero1_train's launch
+ZERO1_RANKS, ZERO1_BATCH, ZERO1_STEPS = 2, 2, 2
 ZERO1_TOL = 1e-2
 # the first moment against the single-process step's. Each rank's bf16
 # gradient comes from products over half the tokens, rounded to bf16
@@ -436,6 +462,19 @@ ZERO1_DELTA_COS = 0.5
 # LM_TP_MOE_CF, the one process at E/k), each rank's blocks within
 # TP_TRAIN_GRAD_TOL of each leaf's largest |grad| of the one-process
 # gradient on the card
+# dp_moe_train: data-parallel MoE training in zero1_train's launch (its
+# (2, 1) mesh, after its steps): Qwen3-MoE-30B-A3B at full width cut to
+# DP_MOE_TRAIN's layers, f32, GSPMD moe_apply at the config's own
+# capacity factor (1.25: it drops), a global batch of rows x tokens, each
+# data rank its rows. The whole batch's gradient (the ranks' share-
+# weighted gradients summed, each rank keeping its half of every leaf: a
+# reduce-scatter) against the one-process gradient of the whole batch on
+# the card, within DP_MOE_GRAD_TOL of each leaf's largest |grad|; the
+# loss and aux within DP_MOE_LOSS_TOL relative; the assignments the
+# whole batch's capacity drops, counted on both sides from the routers'
+# loads, equal and above 0
+DP_MOE_TRAIN = (2, 2, 512)  # layers, global rows, tokens a row
+DP_MOE_GRAD_TOL, DP_MOE_LOSS_TOL = 1e-4, 1e-5
 TP_TRAIN_RANKS = 2
 TP_TRAIN_DENSE_F32, TP_TRAIN_MOE_F32 = (2, 1, 256), (2, 1, 512)
 TP_TRAIN_GRAD_TOL = 1e-4
@@ -472,6 +511,14 @@ LM_TP_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=32,
                     slots=16, admit_per_step=8, paged=False, cache_len=544)
 LM_TP_REQUESTS = 16
 LM_TP_TF_PROMPTS, LM_TP_TF_STEPS, LM_TP_F32_STEPS = 8, 24, 4
+# the paged engine on the same ranks and requests: each rank's pool holds
+# its kv heads (dense 4, MoE 2), its decode walks them with
+# paged_attention_stats at the rank's shape (B 16, KVH 4, G 5; KVH 2,
+# G 8) and its admission prefills them with flash; its teacher-forced
+# rows (the same prompts through prefill_kv and paged_decode_step) held
+# to the one-process paged run by lm_serve's rule
+LM_TP_PAGED_ENGINE = dict(LM_TP_ENGINE, paged=True,
+                          page_size=LM_ENGINE["page_size"])
 # the profiled window: a copy of the engine state after this step runs the
 # next LM_PROFILE_STEPS steps under torch.profiler
 LM_PROFILE_STEP, LM_PROFILE_STEPS = 40, 16
@@ -2388,7 +2435,13 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
             ("moe_bfloat16", torch.bfloat16, None, None,
              (kvh_moe, h_moe // kvh_moe)),
             ("vlm_bfloat16", torch.bfloat16, None, None,
-             (vlm.num_kv_heads, vlm.num_heads // vlm.num_kv_heads))):
+             (vlm.num_kv_heads, vlm.num_heads // vlm.num_kv_heads)),
+            # lm_tp_serve's paged ranks: each holds 1/LM_TP_RANKS of the
+            # kv heads, every q head of its groups
+            ("tp_dense_bfloat16", torch.bfloat16, None, None,
+             (8 // LM_TP_RANKS, 5)),
+            ("tp_moe_bfloat16", torch.bfloat16, None, None,
+             (kvh_moe // LM_TP_RANKS, h_moe // kvh_moe))):
         args = lm_pool_inputs(torch, np, dt, SEED + 20, seqs, tokens, *heads)
         q, kp, vp, table, lengths = args
         b, kvh, g, hd = q.shape
@@ -2407,7 +2460,7 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
         e["tokens"] = tokens
         e["kv_heads_group"] = (kvh, g)
         e["splits"] = pa.splits(table.shape[1], kp.shape[1])
-        if dt == torch.bfloat16:
+        if dt == torch.bfloat16 and not key.startswith("tp_"):
             e["device_us_by_splits"] = paged_split_sweep(torch, pa, args)
         out[f"paged_{key}"] = e
         if key == "bfloat16":
@@ -2479,6 +2532,9 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
         raise AssertionError(f"lm_kernels: kernels outside tolerance: {bad}")
     entries["paged_attention_stats"]["moe_shape"] = out["paged_moe_bfloat16"]
     entries["paged_attention_stats"]["vlm_shape"] = out["paged_vlm_bfloat16"]
+    for name in ("tp_dense", "tp_moe"):
+        entries["paged_attention_stats"][f"{name}_shape"] = out[
+            f"paged_{name}_bfloat16"]
     entries["flash_attention"]["moe_shape"] = out[
         "flash_moe_bfloat16_window0"]
     for name in ("tp_dense", "tp_moe"):
@@ -2758,8 +2814,9 @@ def lm_walk_check(torch, pa, ref, kv, seed, g):
     head: the normalised outputs within the bf16 tolerance."""
     b = kv.lengths.shape[0]
     kvh, hd = kv.k_pages.shape[3], kv.k_pages.shape[4]
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, kvh, g, hd), generator=gen, device="cuda") * hd ** -0.5
+    dev = kv.k_pages.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=dev) * hd ** -0.5
     worst = 0.0
     for i in range(kv.k_pages.shape[0]):
         args = (q, kv.k_pages[i], kv.v_pages[i], kv.page_table, kv.lengths)
@@ -4081,6 +4138,8 @@ def zero1_rank(rank, world, spec):
         lrs.append(float(m["lr"]))
         digests.append(_digest(torch, params))
     peak = torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda" else None
+    # the data-parallel MoE check on this launch's mesh
+    dp_moe = dp_moe_rank(torch, mesh, spec["dp_moe"], dev)
 
     # the final params whole against rank 1's (rank 0 compares)
     equal_ranks = True
@@ -4091,7 +4150,7 @@ def zero1_rank(rank, world, spec):
     whole = optim.zero1_gather(opt, params, ctx)
     out = {"rank": rank, "losses": losses, "grad_norms": gnorms,
            "step_s": step_s, "wire": wire, "digests": digests,
-           "peak_gb": peak, "backend": mesh.backend,
+           "peak_gb": peak, "backend": mesh.backend, "dp_moe": dp_moe,
            "params_equal_rank1": bool(equal_ranks) if rank == 0 else None}
     if rank != 0:
         return out
@@ -4164,6 +4223,134 @@ def zero1_rank(rank, world, spec):
                                   for a, _ in pairs)
     del back, state, whole
     return out
+
+
+def dp_moe_rank(torch, mesh, spec, dev):
+    """The data-parallel MoE check on this rank of a (dp, 1) mesh: the
+    f32 gradient of ``spec["cfg"]``'s seeded params on this rank's rows
+    of the global batch (GSPMD ``moe_apply``: the whole batch's
+    capacity, dispatch positions and router statistics), weighted by the
+    rows' share and summed over the data axis, this rank keeping its
+    block of every leaf along dim 0 (a reduce-scatter); then the
+    one-process gradient of the whole batch, against which that block is
+    held (max |diff| over the leaf's largest |grad|). The routers' loads
+    on both sides (``_recording_loads``) for the drop counts."""
+    import gc
+
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train
+    from repro_torch.models import model, moe, postprocess_grads
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import local_context
+
+    def sync():
+        _sync(torch, dev)
+
+    t_all = time.perf_counter()
+    cfg = spec["cfg"]
+    ctx = lmesh.make_context(mesh, cfg)
+    params = model.init_params(spec["seed"], cfg, ctx, dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in spec["batch"].items()}
+    local = train.local_batch(batch, ctx)
+    share = local["labels"].numel() / batch["labels"].numel()
+    rows = local["labels"].numel()
+    out = {"loads": [], "one_process_loads": []}
+    route = _recording_loads(moe, out["loads"], min_rows=rows)
+    try:
+        sync()
+        t = time.perf_counter()
+        loss, metrics, grads = train.grads_of(params, local, cfg, ctx)
+        grads = postprocess_grads(grads, cfg, ctx)
+        sync()
+        out["grad_s"] = time.perf_counter() - t
+    finally:
+        moe._route_raw = route
+    coll.reset_stats()
+    t = time.perf_counter()
+    blocks = [(name, coll.psum_scatter(g.float() * share, mesh, "data", 0))
+              for name, g in _named_leaves(grads)]
+    del grads
+    sync()
+    out["reduce_s"] = time.perf_counter() - t
+    out["wire"] = dict(coll.stats)
+    out["loss"] = float(coll.psum(loss.float() * share, mesh, "data"))
+    out["aux"] = float(metrics["aux"])
+    one = local_context()
+    route = _recording_loads(moe, out["one_process_loads"], min_rows=rows)
+    try:
+        sync()
+        t = time.perf_counter()
+        loss, metrics, ref = train.grads_of(params, batch, cfg, one)
+        ref = postprocess_grads(ref, cfg, one)
+        sync()
+        out["one_process_grad_s"] = time.perf_counter() - t
+    finally:
+        moe._route_raw = route
+    del params
+    out["one_process_loss"] = float(loss)
+    out["one_process_aux"] = float(metrics["aux"])
+    r = coll.data_rank(ctx)
+    rel = {}
+    for (name, blk), (_, w) in zip(blocks, _named_leaves(ref)):
+        k = blk.shape[0]
+        rel[name] = float((blk - w.narrow(0, r * k, k).float()).abs().max()
+                          ) / (float(w.abs().max()) or 1.0)
+    worst = max(rel, key=rel.get)
+    out["leaves"] = len(rel)
+    out["worst"] = {"leaf": worst, "rel": rel[worst]}
+    del blocks, ref
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
+def dp_moe_summary(np, moe, spec, ranks, smi):
+    """The line of the data-parallel MoE check (:func:`dp_moe_rank` on
+    each rank) and why it fails (None: it passes). The ranks' drops are
+    the whole batch's: each call's tokens and per-expert loads summed
+    over the ranks, past ``moe._capacity`` of those tokens."""
+    cfg = spec["cfg"]
+    parts = [r["dp_moe"] for r in ranks]
+    calls = [(sum(t for t, _ in c), sum(n for _, n in c))
+             for c in zip(*(p["loads"] for p in parts))]
+    drops = {"ranks": moe_drops(np, moe, cfg, calls),
+             "one_process": moe_drops(np, moe, cfg,
+                                      parts[0]["one_process_loads"])}
+    one = parts[0]
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    out = {"phase": "dp_moe_train", "nvidia_smi": smi, "arch": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "capacity_factor": cfg.capacity_factor,
+           "mesh": [len(ranks), 1], "dispatch": "GSPMD moe_apply",
+           "global_batch": list(spec["batch"]["tokens"].shape),
+           "in": "zero1_train's launch",
+           "loss_by_rank": [p["loss"] for p in parts],
+           "one_process_loss": one["one_process_loss"],
+           "loss_rel_diff": max(rel(p["loss"], p["one_process_loss"])
+                                for p in parts),
+           "aux_rel_diff": max(rel(p["aux"], p["one_process_aux"])
+                               for p in parts),
+           "worst_by_rank": [p["worst"] for p in parts],
+           "leaves": one["leaves"], "tolerance": DP_MOE_GRAD_TOL,
+           "loss_tolerance": DP_MOE_LOSS_TOL,
+           "grad_s_by_rank": [p["grad_s"] for p in parts],
+           "reduce_s_by_rank": [p["reduce_s"] for p in parts],
+           "one_process_grad_s_by_rank": [p["one_process_grad_s"]
+                                          for p in parts],
+           "wire_by_rank": [p["wire"] for p in parts], "drops": drops,
+           "seconds_by_rank": [p["seconds"] for p in parts]}
+    why = []
+    if max(out["loss_rel_diff"], out["aux_rel_diff"]) > DP_MOE_LOSS_TOL:
+        why.append("the loss or aux is not the one-process step's")
+    if max(w["rel"] for w in out["worst_by_rank"]) > DP_MOE_GRAD_TOL:
+        why.append("a gradient leaf is outside tolerance")
+    if not (drops["ranks"]["dropped"] == drops["one_process"]["dropped"] > 0
+            and drops["ranks"]["assignments"]
+            == drops["one_process"]["assignments"]):
+        why.append(f"the drops differ or are none ({drops})")
+    return out, "; ".join(why) or None
 
 
 def zero1_half_reference(torch, cfg, ocfg, spec, batches, p0, norms,
@@ -4254,11 +4441,15 @@ def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None,
     reference (:func:`zero1_half_reference`) against their checkpoint.
     With ``keep`` (a dict) the single-process run's files stay on disk
     and ``keep`` gets its spec, results and directory (``root``: the
-    caller removes it): tp_train reuses them."""
+    caller removes it): tp_train reuses them. The same ranks then run the
+    data-parallel MoE check (``spec["dp_moe"]``, DP_MOE_TRAIN by
+    default; :func:`dp_moe_rank`), printed as its own line,
+    ``dp_moe_train``."""
     import dataclasses
     import gc
 
     from repro_torch import optim
+    from repro_torch.models import moe
     from repro_torch.data import DataConfig, batch_for_step
     from repro_torch.launch import train
     from repro_torch.parallel.sharding import local_context
@@ -4273,6 +4464,16 @@ def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None,
         cfg_mod.SHAPES["train_4k"], global_batch=ZERO1_BATCH)
     spec.update(seed=SEED + 83, ref=os.path.join(root, "single.pt"),
                 ckpt=os.path.join(root, "ckpt"))
+    if "dp_moe" not in spec:
+        layers, rows, tokens = DP_MOE_TRAIN
+        mcfg = cfg_mod.get_config(LM_MOE_ARCH).replace(
+            num_layers=layers, dtype="float32", remat=False)
+        rng = np.random.default_rng(SEED + 101)
+        toks = rng.integers(1, mcfg.vocab_size, (rows, tokens)).astype(
+            np.int32)
+        spec["dp_moe"] = {"cfg": mcfg, "seed": SEED + 100,
+                          "batch": {"tokens": toks,
+                                    "labels": np.roll(toks, -1, axis=1)}}
     try:
         if dev == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -4397,8 +4598,13 @@ def phase_zero1_train(torch, np, cfg_mod, model, coll, smi, spec=None,
         failed = "outside the tolerance of the half-batch reference"
     elif not (r0["resume_bit_equal"] and r0["resume_step"] == spec["steps"]):
         failed = "the one-rank resume is not bit-equal"
-    if failed:
-        raise AssertionError(f"zero1_train: {failed}")
+    dp, dp_failed = dp_moe_summary(np, moe, spec["dp_moe"], ranks, smi)
+    emit(dp)
+    if failed or dp_failed:
+        raise AssertionError("; ".join(
+            f"{name}: {why}" for name, why in (("zero1_train", failed),
+                                               ("dp_moe_train", dp_failed))
+            if why))
     return out
 
 
@@ -4978,24 +5184,110 @@ def lm_tp_tf_run(torch, model, moe, cfg, ctx, params, prompts, tokens,
     return logits, fed, st
 
 
+def lm_tp_paged_tf_run(torch, model, pk, cfg, ctx, params, prompts, tokens,
+                       steps=LM_TP_TF_STEPS, dev="cuda"):
+    """The teacher-forced rows through the paged path: ``prompts`` through
+    ``model.prefill_kv`` (flash) straight into a pool of this rank's kv
+    heads, then one ``paged_decode_step`` (paged_attention_stats) a row of
+    ``tokens`` (or ``steps`` greedy steps). Returns (the logits of each
+    step on the host, the tokens fed, the final pool)."""
+    from repro_torch.models.layers import dtype_of
+
+    b, s = prompts.shape
+    n = len(tokens) if tokens is not None else steps
+    ps = LM_TP_PAGED_ENGINE["page_size"]
+    maxp = -(-(s + n) // ps)
+    pcfg = model.make_paged_kv_config(cfg, ctx, num_pages=b * maxp,
+                                      page_size=ps, max_pages_per_seq=maxp)
+    kv = pk.make(pcfg, batch=b, dtype=dtype_of(cfg.dtype), device=dev)
+    backend = "cuda" if dev == "cuda" else "ref"
+    k, v, lg = model.prefill_kv(params, torch.from_numpy(prompts).to(dev),
+                                cfg, ctx, kernel_backend=backend)
+    every = torch.ones((b,), dtype=torch.bool, device=dev)
+    kv, landed = pk.prefill_into_pages(
+        kv, pcfg, torch.arange(b, dtype=torch.int32, device=dev), k, v,
+        every)
+    del k, v
+    if not bool(landed.all()):
+        raise AssertionError("lm_tp_serve: a paged prefill did not land")
+    logits, fed = [lg.cpu()], []
+    for i in range(n):
+        tok = lg.argmax(-1).to(torch.int32) if tokens is None \
+            else tokens[i].to(dev)
+        fed.append(tok.cpu())
+        kv, lg, ok = model.paged_decode_step(params, tok, kv, pcfg, cfg, ctx,
+                                             kernel_backend=backend)
+        if not bool(ok.all()):
+            raise AssertionError("lm_tp_serve: the paged pool ran dry")
+        logits.append(lg.cpu())
+    return logits, fed, kv
+
+
+def lm_tp_engine_run(torch, np, eng, rb, cfg, ctx, params, ecfg, prompts,
+                     caps, box, dev):
+    """``ecfg``'s engine (dense or paged) on this rank over the requests:
+    each step's host seconds, collective seconds (``box``), calls and
+    bytes, and the prompts it admitted; the responses and the kernels'
+    launches in the run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.parallel import collectives as coll
+
+    steps, popped = [], [0]
+
+    def on_step(step, state):
+        head = int(state.req.head.sum())
+        steps.append({"coll_s": box["s"], "calls": coll.stats["calls"],
+                      "bytes": coll.stats["bytes"],
+                      "admitted": head - popped[0]})
+        popped[0] = head
+        coll.reset_stats()
+        box["s"] = 0.0
+
+    coll.reset_stats()
+    box["s"] = 0.0
+    fa.reset_launches()
+    pa.reset_launches()
+    state, times = lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts,
+                                caps, on_step, dev)
+    launches = {**fa.launches, **pa.launches}
+    for row, s in zip(steps, times):
+        row["s"] = s
+    resp = lm_responses(np, rb, state, caps, ecfg.num_queues)
+    del state
+    return {"steps": steps, "launches": launches, "responses": resp}
+
+
+def _tf_digest(logits):
+    import hashlib
+
+    digest = hashlib.sha1()
+    for a in logits:
+        digest.update(a.numpy().tobytes())
+    return digest.hexdigest()
+
+
 def lm_tp_rank(rank, world, spec):
     """This rank of a (1, world) ("data", "model") mesh on the card: its
     blocks of the seeded params (``sharding.param_blocks``), the dense
     engine's run over the requests, the teacher-forced rows against the
-    one-process reference (``spec["ref"]``) and the f32 pass. The flash
-    launches of each part, step and collective times, peak memory."""
-    import hashlib
-
+    one-process reference (``spec["ref"]``), then the same through the
+    paged engine (its pool this rank's kv heads) and the paged path, and
+    the f32 pass. The kernels' launches of each part, step and collective
+    times, peak memory."""
     import numpy as np
     import torch
 
     from repro_torch.core import engine as eng
     from repro_torch.core import ringbuf as rb
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref as kref
     from repro_torch.launch import mesh as lmesh
     from repro_torch.models import model, moe
     from repro_torch.parallel import collectives as coll
     from repro_torch.parallel.sharding import param_blocks
+    from repro_torch.serving import kv_cache as pk
 
     dev = spec["device"]
     if dev == "cuda":
@@ -5024,30 +5316,10 @@ def lm_tp_rank(rank, world, spec):
         prompts, caps, tf_prompts = lm_tp_requests(np, cfg, spec["seed"] + 2)
         # the engine over the requests; each step's collective time,
         # calls and bytes, and the prompts it admitted
-        ecfg = eng.LMEngineConfig(**LM_TP_ENGINE, kernel_backend="auto")
-        steps, popped = [], [0]
-
-        def on_step(step, state):
-            head = int(state.req.head.sum())
-            steps.append({"coll_s": box["s"], "calls": coll.stats["calls"],
-                          "bytes": coll.stats["bytes"],
-                          "admitted": head - popped[0]})
-            popped[0] = head
-            coll.reset_stats()
-            box["s"] = 0.0
-
-        coll.reset_stats()
-        box["s"] = 0.0
-        fa.reset_launches()
-        state, times = lm_serve_run(torch, eng, cfg, ctx, params, ecfg,
-                                    prompts, caps, on_step, dev)
-        out["launches"] = dict(fa.launches)
-        for row, s in zip(steps, times):
-            row["s"] = s
-        out["steps"] = steps
-        out["responses"] = lm_responses(np, rb, state, caps,
-                                        ecfg.num_queues)
-        del state
+        out.update(lm_tp_engine_run(
+            torch, np, eng, rb, cfg, ctx, params,
+            eng.LMEngineConfig(**LM_TP_ENGINE, kernel_backend="auto"),
+            prompts, caps, box, dev))
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
             if dev == "cuda" else None
 
@@ -5057,14 +5329,10 @@ def lm_tp_rank(rank, world, spec):
                                     tf_prompts, ref["tf_tokens"],
                                     routes=routes, dev=dev)
         out["tf_launches"] = dict(fa.launches)
-        digest = hashlib.sha1()
-        parts = []
-        for a, b in zip(logits, ref["tf_logits"]):
-            digest.update(a.numpy().tobytes())
-            parts.append(row_stats(torch, a.to(dev), b.to(dev),
-                                   cfg.vocab_size))
-        out["tf"] = merge_rows(parts)
-        out["tf_digest"] = digest.hexdigest()
+        out["tf"] = merge_rows([row_stats(torch, a.to(dev), b.to(dev),
+                                          cfg.vocab_size)
+                                for a, b in zip(logits, ref["tf_logits"])])
+        out["tf_digest"] = _tf_digest(logits)
         if routes is not None:
             same = [sum(int((a.sort(-1).values == b.sort(-1).values)
                             .all(-1).sum()) for a, b in zip(got, want))
@@ -5075,7 +5343,30 @@ def lm_tp_rank(rank, world, spec):
                 n * cfg.num_layers)
             out["tf"]["expert_sets_equal_share_by_layer"] = [
                 x / n for x in same]
-        del params
+
+        # the paged engine over the same requests, then the teacher-forced
+        # rows through the paged path; the walk on the rank's live pool
+        # against the plain version
+        out["paged"] = lm_tp_engine_run(
+            torch, np, eng, rb, cfg, ctx, params,
+            eng.LMEngineConfig(**LM_TP_PAGED_ENGINE, kernel_backend="auto"),
+            prompts, caps, box, dev)
+        fa.reset_launches()
+        pa.reset_launches()
+        logits, _, kv = lm_tp_paged_tf_run(torch, model, pk, cfg, ctx,
+                                           params, tf_prompts,
+                                           ref["paged_tf_tokens"], dev=dev)
+        out["paged"]["tf_launches"] = {**fa.launches, **pa.launches}
+        out["paged"]["tf"] = merge_rows([
+            row_stats(torch, a.to(dev), b.to(dev), cfg.vocab_size)
+            for a, b in zip(logits, ref["paged_tf_logits"])])
+        out["paged"]["tf_digest"] = _tf_digest(logits)
+        out["paged"]["pool_kv_heads"] = int(kv.k_pages.shape[3])
+        if dev == "cuda":
+            g = cfg.num_heads // cfg.num_kv_heads
+            out["paged"]["walk"] = lm_walk_check(torch, pa, kref, kv,
+                                                 spec["seed"] + 3, g)
+        del params, kv
         if dev == "cuda":
             torch.cuda.empty_cache()
         out["f32"] = lm_tp_f32_rank(torch, model, moe, fa, ctx, spec, ref,
@@ -5123,29 +5414,40 @@ def lm_tp_reference(torch, np, eng, rb, model, moe, fa, cfg, seed, path,
     """The one-process run on the card, for the ranks to be held against:
     the dense engine over the same requests (its responses, step times
     and flash launches), the teacher-forced rows (greedy from its own
-    logits; with MoE the decode steps' expert ids) and the f32 pass at
-    ``cfg_f32``; saved to ``path`` on the host, the weights freed."""
+    logits; with MoE the decode steps' expert ids), the same two through
+    the paged engine and the paged path, and the f32 pass at
+    ``cfg_f32``; saved to ``path`` on the host, the weights freed.
+    Returns (dense, paged: each its responses and step times; the
+    prefills' drops)."""
     from repro_torch.parallel.sharding import local_context
+    from repro_torch.serving import kv_cache as pk
 
     ctx = local_context()
     params = model.init_params(seed, cfg, ctx, dev)
     prompts, caps, tf_prompts = lm_tp_requests(np, cfg, seed + 2)
     loads = []
     route = _recording_loads(moe, loads)
+    runs = {}
     try:
-        state, times = lm_serve_run(
-            torch, eng, cfg, ctx, params,
-            eng.LMEngineConfig(**LM_TP_ENGINE, kernel_backend="auto"),
-            prompts, caps, device=dev)
-        resp = lm_responses(np, rb, state, caps, LM_TP_ENGINE["num_queues"])
-        del state
+        for name, engine in (("dense", LM_TP_ENGINE),
+                             ("paged", LM_TP_PAGED_ENGINE)):
+            state, times = lm_serve_run(
+                torch, eng, cfg, ctx, params,
+                eng.LMEngineConfig(**engine, kernel_backend="auto"),
+                prompts, caps, device=dev)
+            runs[name] = (lm_responses(np, rb, state, caps,
+                                       engine["num_queues"]), times)
+            del state
         routes = [] if cfg.is_moe else None
         logits, fed, _ = lm_tp_tf_run(torch, model, moe, cfg, ctx, params,
                                       tf_prompts, None, routes=routes,
                                       dev=dev)
+        paged_logits, paged_fed, _ = lm_tp_paged_tf_run(
+            torch, model, pk, cfg, ctx, params, tf_prompts, None, dev=dev)
     finally:
         moe._route_raw = route
-    ref = {"tf_logits": logits, "tf_tokens": fed, "routes": routes}
+    ref = {"tf_logits": logits, "tf_tokens": fed, "routes": routes,
+           "paged_tf_logits": paged_logits, "paged_tf_tokens": paged_fed}
     del params
     params = model.init_params(seed + 1, cfg_f32, ctx, dev)
     logits, fed, st = lm_tp_tf_run(torch, model, moe, cfg_f32, ctx, params,
@@ -5156,7 +5458,66 @@ def lm_tp_reference(torch, np, eng, rb, model, moe, fa, cfg, seed, path,
     del params, st
     torch.save(ref, path)
     drops = moe_drops(np, moe, cfg, loads) if loads else None
-    return resp, times, drops
+    return runs["dense"], runs["paged"], drops
+
+
+def lm_tp_paged_summary(np, cfg, ranks, one):
+    """The paged engine's run on the ranks beside the one-process paged
+    engine's (``one``: its responses and step times): step times and
+    collectives, the kernels' launches against layers x steps (decode)
+    and layers x admission steps (flash), the teacher-forced rows, and
+    whether the ranks agree."""
+    resp_1, times_1 = one
+    r0 = ranks[0]["paged"]
+    steps = len(r0["steps"])
+    admissions = sum(1 for r in r0["steps"] if r["admitted"])
+    tokens = sum(len(v) for v in r0["responses"].values())
+    return {
+        "engine": LM_TP_PAGED_ENGINE, "steps": steps,
+        "admission_steps": admissions, "generated_tokens": tokens,
+        "tp": _tp_step_summary(r0["steps"]),
+        "tp_tokens_per_s": tokens / sum(r["s"] for r in r0["steps"]),
+        "one_process": {"step_ms_median": statistics.median(times_1) * 1e3,
+                        "tokens_per_s": tokens / sum(times_1)},
+        "responses_equal_across_ranks": all(
+            r["paged"]["responses"].keys() == r0["responses"].keys()
+            and all(np.array_equal(r["paged"]["responses"][k], v)
+                    for k, v in r0["responses"].items()) for r in ranks),
+        "token_agreement_vs_one_process": sum(
+            int((r0["responses"][k] == v).sum())
+            for k, v in resp_1.items()) / max(tokens, 1),
+        "teacher_forced": r0["tf"],
+        "tf_logits_equal_across_ranks": len(
+            {r["paged"]["tf_digest"] for r in ranks}) == 1,
+        "pool_kv_heads_by_rank": [r["paged"]["pool_kv_heads"]
+                                  for r in ranks],
+        "paged_launches_by_rank": [
+            r["paged"]["launches"].get("paged_attention_stats", 0)
+            for r in ranks],
+        "paged_launches_expected": cfg.num_layers * steps,
+        "flash_launches_by_rank": [
+            r["paged"]["launches"].get("flash_attention", 0) for r in ranks],
+        "flash_launches_expected": cfg.num_layers * admissions,
+        "tf_launches_by_rank": [r["paged"]["tf_launches"] for r in ranks],
+        "walk_by_rank": [r["paged"].get("walk") for r in ranks]}
+
+
+def lm_tp_paged_failures(run):
+    """Why the paged run fails its gates (an empty list when it passes):
+    the ranks differ, the teacher-forced rows fail lm_serve's rule, or a
+    kernel's launches on the ranks are not layers x steps."""
+    out = []
+    if not (run["responses_equal_across_ranks"]
+            and run["tf_logits_equal_across_ranks"]):
+        out.append("the ranks differ")
+    why = decided_failure(run["teacher_forced"], LM_DECIDED_SHARE)
+    if why:
+        out.append(why)
+    for k in ("paged", "flash"):
+        got, want = run[f"{k}_launches_by_rank"], run[f"{k}_launches_expected"]
+        if not want or got != [want] * len(got):
+            out.append(f"{k} launches {got} != {want}")
+    return out
 
 
 def _tp_step_summary(steps):
@@ -5225,7 +5586,7 @@ def phase_lm_tp_serve(torch, np, eng, rb, cfg_mod, model, moe, fa, coll, smi,
                 if cfg.is_moe else cfg
             path = os.path.join(root, f"{name}.pt")
             torch.backends.cuda.matmul.allow_tf32 = False
-            resp_1, times_1, drops = lm_tp_reference(
+            (resp_1, times_1), paged_1, drops = lm_tp_reference(
                 torch, np, eng, rb, model, moe, fa, ref_cfg, seed, path,
                 ref_cfg.replace(**f32), device)
             ref_s = time.perf_counter() - t0
@@ -5281,6 +5642,7 @@ def phase_lm_tp_serve(torch, np, eng, rb, cfg_mod, model, moe, fa, coll, smi,
                        for r in ranks],
                    "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
                    "backend": r0["backend"]}
+            run["paged"] = lm_tp_paged_summary(np, cfg, ranks, paged_1)
             if cfg.is_moe:
                 run["capacity_factor"] = {
                     "ranks": cfg.capacity_factor,
@@ -5311,6 +5673,8 @@ def phase_lm_tp_serve(torch, np, eng, rb, cfg_mod, model, moe, fa, coll, smi,
                               f"{run['flash_launches_by_rank']} != {want}")
             if not all(r["f32"]["within_tolerance"] for r in ranks):
                 failed.append(f"{name}: the f32 pass is outside tolerance")
+            failed += [f"{name}: paged: {why}"
+                       for why in lm_tp_paged_failures(run["paged"])]
             del ranks
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -5489,11 +5853,19 @@ def main() -> int:
     flash["hybrid_f32_shape"]["launches"] = 0
     flash["hybrid_f32_shape"]["check_launches"] = hybrid_f32
     flash["audio_shape"]["launches"] = audio_launches["flash_attention"]
-    # each tensor-parallel rank's engine runs at its own head count
+    # each tensor-parallel rank's engines run at its own head count: the
+    # dense engine's admissions and the paged engine's admissions and
+    # decode steps
+    paged = lm_entries["paged_attention_stats"]
     for name in ("dense", "moe"):
-        n = sum(tp["runs"][name]["flash_launches_by_rank"])
+        run = tp["runs"][name]
+        n = sum(run["flash_launches_by_rank"]) + sum(
+            run["paged"]["flash_launches_by_rank"])
         flash[f"tp_{name}_shape"]["launches"] = n
         flash["launches"] += n
+        n = sum(run["paged"]["paged_launches_by_rank"])
+        paged[f"tp_{name}_shape"]["launches"] = n
+        paged["launches"] += n
     entries.update(lm_entries)
 
     dead = [k for k, e in entries.items()

@@ -7,12 +7,15 @@ phases named, in the order given, each printing its JSON line.
     python3 scripts/chip_phases.py tx_crash lm_crash
     python3 scripts/chip_phases.py lm_tp_serve
     python3 scripts/chip_phases.py zero1_train tp_train
+    python3 scripts/chip_phases.py dp_moe_train lm_tp_serve
 
-Phases: ``tx_spmd``, ``zero1_train``, ``tp_train``, ``tx_crash``,
-``lm_crash``, ``lm_tp_serve``. ``tp_train`` holds its ranks against
-zero1_train's single-process steps: named without it, zero1_train runs
-first. The checks are the script's own; the kernels line and the last
-line are not printed (a phase's launches are in its own line). GPU only.
+Phases: ``tx_spmd``, ``zero1_train``, ``dp_moe_train``, ``tp_train``,
+``tx_crash``, ``lm_crash``, ``lm_tp_serve``. ``tp_train`` holds its
+ranks against zero1_train's single-process steps, and ``dp_moe_train``
+(the data-parallel MoE check) runs in zero1_train's launch: named
+without zero1_train, either runs it first (its line is printed once).
+The checks are the script's own; the kernels line and the last line are
+not printed (a phase's launches are in its own line). GPU only.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("tx_spmd", "zero1_train", "tp_train", "tx_crash", "lm_crash",
-          "lm_tp_serve")
+PHASES = ("tx_spmd", "zero1_train", "dp_moe_train", "tp_train", "tx_crash",
+          "lm_crash", "lm_tp_serve")
 
 
 def main(names) -> int:
@@ -50,11 +53,13 @@ def main(names) -> int:
         for name in names:
             gc.collect()
             torch.cuda.empty_cache()
-            if name == "tp_train" and "spec" not in zero1:
+            if name in ("tp_train", "dp_moe_train", "zero1_train") \
+                    and "spec" not in zero1:
                 run("zero1_train", smi, zero1)
                 gc.collect()
                 torch.cuda.empty_cache()
-            run(name, smi, zero1)
+            if name not in ("dp_moe_train", "zero1_train"):
+                run(name, smi, zero1)
     finally:
         if "root" in zero1:
             shutil.rmtree(zero1["root"], ignore_errors=True)

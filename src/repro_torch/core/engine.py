@@ -398,8 +398,14 @@ def lm_expected_pages_per_request(cfg: LMEngineConfig) -> int:
 
 def lm_paged_kv_config(cfg: LMEngineConfig, model_cfg, ctx):
     """PagedKVConfig for this engine + model (the pool auto-sized to the
-    dense-equivalent worst case when ``cfg.num_pages`` is 0)."""
+    dense-equivalent worst case when ``cfg.num_pages`` is 0); under
+    tensor parallelism this rank's pool, its kv heads. The host cold
+    tier (``host_pages > 0``) under a mesh is not ported."""
     from repro_torch.models.model import make_paged_kv_config
+
+    if cfg.host_pages and ctx.mesh is not None and ctx.mesh.size > 1:
+        raise NotImplementedError(
+            "the swap service (host_pages > 0) under a mesh is not ported")
 
     mppr = lm_max_pages_per_request(cfg)
     num_pages = cfg.num_pages or cfg.slots * mppr
@@ -688,15 +694,22 @@ def _lm_step_paged(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
     # are the same either way. An MoE block's capacity depends on the
     # token count, so it is sized from the padded batch's: the prefix
     # comes first in token order and the dispatch sort is stable, so every
-    # admitted assignment keeps JAX's slot and keep.
+    # admitted assignment keeps JAX's slot and keep. The EP shard_map
+    # dispatch is not prefix-exact (it splits the tokens into one block a
+    # model rank and sizes each send buffer from its block), so under it
+    # the whole padded batch is prefilled, as JAX does.
     n_adm = int(admit_ok.sum())
     adm_next = torch.zeros_like(slot_ids)
     if n_adm:
+        whole = model_cfg.is_moe and ctx.ep_shardmap and ctx.mesh is not None
+        rows = prompts.to(I32) if whole else prompts[:n_adm].to(I32)
         if prefill_fn is None:
             adm_k, adm_v, adm_logits = prefill_kv(
-                params, prompts[:n_adm].to(I32), model_cfg, ctx,
+                params, rows, model_cfg, ctx,
                 kernel_backend=cfg.kernel_backend,
                 capacity_tokens=cfg.admit_per_step * cfg.prompt_len)
+            adm_k, adm_v = adm_k[:, :n_adm], adm_v[:, :n_adm]
+            adm_logits = adm_logits[:n_adm]
         else:
             adm_k, adm_v, adm_logits = prefill_fn(params,
                                                   prompts[:n_adm].to(I32))

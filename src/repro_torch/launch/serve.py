@@ -52,12 +52,14 @@ def engine_step(cfg, ctx, ecfg: eng.LMEngineConfig, params, device="cuda"):
     be used again.
 
     Under a tensor-parallel context (a running mesh whose model axis
-    splits the model; ``params`` this rank's blocks) the dense step runs
-    on every rank: each holds a replica of the engine state (rings,
-    slots, positions) and its kv heads of the decode state, and the
-    logits it reads are whole, so every rank emits the same responses.
-    Data-parallel serving (the slots' rows split over data ranks) and the
-    paged step under a mesh are not ported."""
+    splits the model; ``params`` this rank's blocks) either step runs on
+    every rank: each holds a replica of the engine state (rings, slots,
+    positions; the paged step's page table, free list and lengths) and
+    its kv heads of the decode state or the page pool, and the logits it
+    reads are whole, so every rank takes the same decisions and emits the
+    same responses. Data-parallel serving (the slots' rows split over
+    data ranks) and the paged swap service under a mesh are not
+    ported."""
     if ctx.mesh is not None and ctx.dp > 1:
         raise NotImplementedError("the LM engine under a mesh runs on the "
                                   "model axis only (data axes of size 1)")

@@ -86,10 +86,14 @@ def build_train_step(cfg, ctx, opt_cfg, *, compress: bool = False,
     the moments the data-axis blocks of them): the gradient comes back
     through the model-axis collectives' backward, the kv replicas are
     tied across ranks (``models.postprocess_grads``), the clip takes the
-    global norm and the compression each whole leaf's scale. MoE is
-    refused at more than one data rank: its capacity and load-balance
-    statistics depend on the whole batch, and the dispatch that reduces
-    them over the data axis is not wired into the stack."""
+    global norm and the compression each whole leaf's scale. An MoE
+    block over data ranks takes the JAX package's semantics of its
+    dispatch: GSPMD ``moe_apply`` the whole batch's capacity, dispatch
+    positions and router statistics, the ``shard_map`` dispatches each
+    rank's capacity and the batch's statistics; the statistics' mean over
+    the data axis sums the ranks' cotangents in its backward
+    (``collectives.data_psum``), so the aux loss's gradient is the global
+    batch's."""
     if ctx.mesh is not None:
         return _build_zero1_step(cfg, ctx, opt_cfg, compress=compress,
                                  chunk=chunk)
@@ -109,10 +113,6 @@ def build_train_step(cfg, ctx, opt_cfg, *, compress: bool = False,
 def _build_zero1_step(cfg, ctx, opt_cfg, *, compress: bool, chunk: int):
     if len(ctx.batch_axes) != 1:
         raise NotImplementedError("ZeRO-1 reduces over one data axis")
-    if cfg.is_moe and ctx.dp > 1:
-        raise NotImplementedError(
-            "data-parallel MoE training needs the batch-wide capacity and "
-            "router statistics (the shard_map dispatch is not wired in)")
     mesh, axes = ctx.mesh, ctx.batch_axes
 
     def train_step(params, opt, err, batch):

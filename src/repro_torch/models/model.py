@@ -19,7 +19,10 @@ to the lowest global index, as on one device. :func:`loss_fn` takes a
 vocab-parallel log-sum-exp and gold logit, and its gradient comes back
 through the model-axis forms' backward (``parallel.collectives``);
 :func:`postprocess_grads` ties the kv replicas across the model ranks.
-The paged path under a mesh is refused."""
+The paged path runs on the model axis: each rank's pool holds its kv
+heads (:func:`make_paged_kv_config`), and its decode and admission
+attend its heads; a pool whose slots split over data ranks is not
+ported (``prefill_kv`` alone runs on a rank's rows)."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
@@ -243,12 +246,15 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
 def check_paged_support(cfg: ModelConfig, ctx=None) -> None:
     """The paged path stores pages in bshd layout and walks full causal
     context; families with recurrent state, and windowed or dot-layout
-    caches, keep the dense decode path. Under a mesh it is not ported
-    (the pool's kv heads and rows per rank)."""
+    caches, keep the dense decode path. Under a mesh the pool runs on the
+    model axis (each rank its kv heads); a data axis of more than one
+    rank would split the pool's slots over ranks, the data-parallel
+    engine, which is not ported."""
     tf.check_family(cfg)
-    if ctx is not None and ctx.mesh is not None and ctx.mesh.size > 1:
-        raise NotImplementedError("the paged decode path under a mesh is "
-                                  "not ported (the dense path is)")
+    if ctx is not None and coll.data_parallel(ctx):
+        raise NotImplementedError(
+            "the paged pool over data ranks (the data-parallel LM engine) "
+            "is not ported: the paged path runs on the model axis only")
     if cfg.attn_free or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"paged decode needs a pure-attention family, got {cfg.family}")
@@ -261,7 +267,9 @@ def check_paged_support(cfg: ModelConfig, ctx=None) -> None:
 def make_paged_kv_config(cfg: ModelConfig, ctx: ParallelContext, *,
                          num_pages: int, page_size: int,
                          max_pages_per_seq: int):
-    """A PagedKVConfig matching this model's physical kv geometry."""
+    """A PagedKVConfig matching this model's physical kv geometry: under
+    tensor parallelism this rank's ``plan.kv_phys / tp`` kv heads (one
+    replica a rank where the plan replicates kv, as the dense rings)."""
     from repro_torch.serving.kv_cache import PagedKVConfig
 
     check_paged_support(cfg, ctx)
@@ -269,8 +277,9 @@ def make_paged_kv_config(cfg: ModelConfig, ctx: ParallelContext, *,
     return PagedKVConfig(
         num_pages=num_pages, page_size=page_size,
         max_pages_per_seq=max_pages_per_seq,
-        kv_heads=plan.kv_phys, head_dim=cfg.resolved_head_dim,
-        layers=cfg.num_layers,
+        kv_heads=plan.kv_phys // (ctx.tp if coll.tensor_parallel(ctx)
+                                  else 1),
+        head_dim=cfg.resolved_head_dim, layers=cfg.num_layers,
     )
 
 
@@ -287,7 +296,9 @@ def paged_decode_step(params, tokens, kv, pcfg, cfg: ModelConfig,
     the current token's fresh k/v; after the last layer ONE
     ``append_token_batch`` commits every layer's new kv, in place. Returns
     (kv', logits (B, V), ok (B,)): ok False where the pool was dry (the
-    slot stalls: nothing appended).
+    slot stalls: nothing appended). Under tensor parallelism ``kv`` is
+    this rank's pool (its kv heads), the walk attends its q heads, and
+    the logits are whole, so every rank takes the same pool decisions.
     """
     from repro_torch.serving import kv_cache as pk
 
@@ -321,10 +332,12 @@ def prefill_kv(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
     Returns (k (L, B, S, kvp, hd), v, last_logits (B, V)); the engine
     writes k/v into the pool (``kv_cache.prefill_into_pages``).
     ``capacity_tokens`` sizes the MoE capacity from that token count in
-    place of B x S (the engine passes its padded admission batch's)."""
-    check_paged_support(cfg, ctx)
+    place of B x S (the engine passes its padded admission batch's; over
+    data ranks, the global batch's). Under a mesh ``tokens`` are this
+    rank's rows and k/v hold its kv heads."""
+    check_paged_support(cfg)
     plan = tf.plan_for(cfg, ctx)
-    h = shard(embed_apply(params["embed"], tokens, cfg), ctx)
+    h = shard(embed_apply(params["embed"], tokens, cfg, ctx), ctx)
     h, kvs = tf.stack_apply(
         params["layers"], h, cfg, plan, ctx, _positions_for(cfg, tokens),
         chunk=chunk, emit_kv=True, backend=kernel_backend,

@@ -32,7 +32,9 @@ Under autograd at tp > 1 the dispatches differentiate through the forms
 of ``parallel.collectives``: the inputs of rank-local work (the capacity
 buffer's tokens, the gates of a partial combine, the EP router) go
 through ``model_copy``, the model-axis sums' backward is the identity,
-the EP all-to-alls' the reverse all-to-all.
+the EP all-to-alls' the reverse all-to-all. Over data ranks the router
+statistics' mean (``data_psum``) sums the ranks' cotangents: each data
+rank's loss is its own rows', weighted by their share.
 """
 from __future__ import annotations
 
@@ -83,13 +85,22 @@ def _route_raw(params, x_flat, cfg: ModelConfig):
 
 
 def _route(params, x_flat, cfg: ModelConfig, ctx=None):
-    """(gates, ids, aux loss); with ``ctx`` the Switch statistics are
-    averaged over its batch axes first (the whole batch's)."""
+    """(gates, ids, aux loss): the Switch statistics are averaged over
+    ``ctx``'s batch axes first (the whole batch's; the identity at one
+    data rank), their backward summing the data ranks' cotangents."""
     gates, idx, me, ce = _route_raw(params, x_flat, cfg)
-    if ctx is not None:
-        me = coll.pmean(me, ctx.mesh, ctx.batch_axes)
-        ce = coll.pmean(ce, ctx.mesh, ctx.batch_axes)
+    me, ce = coll.data_pmean(me, ctx), coll.data_pmean(ce, ctx)
     return gates, idx, cfg.num_experts * torch.sum(me * ce)
+
+
+def _data_offsets(flat_e, num_experts: int, ctx):
+    """Each expert's assignments on the earlier data ranks, (E,) int64:
+    the offset that turns this rank's positions into the whole batch's
+    (rank r holds rows r·B/dp onward, so its tokens follow theirs in
+    token order). One gather of an (E,) int32 a data rank."""
+    counts = torch.bincount(flat_e, minlength=num_experts).to(torch.int32)
+    every = coll.data_gather(counts[None], ctx, 0)  # (dp, E)
+    return every[:coll.data_rank(ctx)].sum(0, dtype=torch.int64)
 
 
 def _capacity(tokens: int, cfg: ModelConfig, experts: int) -> int:
@@ -181,26 +192,36 @@ def moe_apply(params, x, cfg: ModelConfig, ctx=None, *,
     assignments in order, and a sum over the model axis adds the ranks'
     partial combines; else it holds every expert's ``d_ff`` block
     (``P(None, ..., model)``), whose f32 partial products meet in a sum
-    over the model axis before the cast and the combine. At dp > 1 the
-    capacity and the dispatch positions would be the whole batch's,
-    which this rank's rows cannot give: refused unless ``no_drop``
-    (where every assignment keeps its slot whatever the batch; the
-    stack's ``ep_shardmap`` dispatch is the data-parallel prefill)."""
+    over the model axis before the cast and the combine.
+
+    Over data ranks (``ctx``'s batch axes over more than one rank; ``x``
+    this rank's rows) the capacity, the dispatch positions and the
+    router statistics are the whole batch's, as GSPMD's: the capacity
+    from the data ranks' tokens summed (``capacity_tokens`` is read as
+    the global padded batch's count), each assignment's position its
+    position on this rank plus the assignments to its expert on the
+    earlier data ranks (one gather of the ranks' (E,) counts), kept where
+    that is under the capacity. Each rank then runs only its own kept
+    assignments, in a buffer of its own: the expert MLP works on each
+    row alone, so no activation crosses ranks. ``no_drop`` keeps every
+    assignment and needs no offset."""
     shape = x.shape
     d = shape[-1]
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]
     e = cfg.num_experts
     tp = coll.tensor_parallel(ctx)
-    if tp and ctx.dp > 1 and not no_drop:
-        raise NotImplementedError(
-            "GSPMD MoE at dp > 1: the capacity and the dispatch positions "
-            "are the whole batch's (set ep_shardmap, whose per-rank "
-            "dispatch is the JAX package's data-parallel path)")
+    dp = coll.data_parallel(ctx)
 
-    gates, idx, aux = _route(params, x_flat, cfg,
-                             ctx if tp and ctx.dp > 1 else None)
-    cap = t if no_drop else _capacity(capacity_tokens or t, cfg, e)
+    gates, idx, aux = _route(params, x_flat, cfg, ctx)
+    offset = None
+    if no_drop:
+        cap = t
+    else:
+        cap = _capacity(capacity_tokens or t * (ctx.dp if dp else 1), cfg,
+                        e)
+        if dp:
+            offset = _data_offsets(idx.reshape(-1), e, ctx)
     # the rank-local work's inputs: their gradients summed over the model
     # axis (the identity without tensor parallelism)
     x_loc = coll.model_copy(x_flat, ctx)
@@ -209,9 +230,10 @@ def moe_apply(params, x, cfg: ModelConfig, ctx=None, *,
         first = coll.model_rank(ctx) * e_loc
         y = coll.model_psum(_experts_local(
             params, x_loc, coll.model_copy(gates, ctx), idx, cap, cfg,
-            experts=(first, first + e_loc)), ctx)
+            experts=(first, first + e_loc), offset=offset), ctx)
     else:  # all experts, or every expert's d_ff block summed in the FFN
-        y = _experts_local(params, x_loc, gates, idx, cap, cfg, ctx=ctx)
+        y = _experts_local(params, x_loc, gates, idx, cap, cfg, ctx=ctx,
+                           offset=offset)
     return y.to(x.dtype).reshape(shape), aux
 
 
@@ -228,10 +250,15 @@ def _combine(picked, gates, t: int, k: int):
 
 
 def _experts_local(params, x_flat, gates, idx, cap: int, cfg: ModelConfig,
-                   experts=None, ctx=None):
+                   experts=None, ctx=None, offset=None):
     """Dispatch ``x_flat``'s assignments to every expert's capacity buffer
     (slots in token order, past ``cap`` dropped), run the experts held in
     ``params``, and combine: (T, D) f32.
+
+    ``offset`` (E,): the assignments to each expert ahead of these tokens
+    on other ranks. An assignment is kept where its slot plus its
+    expert's offset is under ``cap`` (the whole batch's keep), and takes
+    its slot in this rank's buffer (under ``cap`` too).
 
     ``experts=(lo, hi)``: ``params`` hold experts lo..hi-1 only, so only
     their buffers are built and run, and the combine takes only their
@@ -245,7 +272,8 @@ def _experts_local(params, x_flat, gates, idx, cap: int, cfg: ModelConfig,
     dev = x_flat.device
     flat_e = idx.reshape(-1)  # (T*k,)
     pos = _dispatch_positions(flat_e, e)
-    keep = (pos < cap) & (flat_e >= lo) & (flat_e < hi)
+    glob = pos if offset is None else pos + offset[flat_e]
+    keep = (glob < cap) & (flat_e >= lo) & (flat_e < hi)
     # the dropped (and other ranks') assignments land on the spare row
     # n*cap, sliced off
     dest = torch.where(keep, (flat_e - lo) * cap + pos, n * cap)
@@ -285,9 +313,8 @@ def moe_apply_tp_shardmap(params, x, cfg: ModelConfig, ctx):
     t = b_loc * s
     xf = x.reshape(t, d)
     gates, idx, me, ce = _route_raw(params, xf, cfg)
-    axes = ctx.batch_axes
-    aux = cfg.num_experts * torch.sum(coll.pmean(me, mesh, axes)
-                                      * coll.pmean(ce, mesh, axes))
+    aux = cfg.num_experts * torch.sum(coll.data_pmean(me, ctx)
+                                      * coll.data_pmean(ce, ctx))
     cap = _capacity(t, cfg, cfg.num_experts)
     # the d_ff blocks' work is rank-local: its inputs' gradients are
     # summed over the model axis, the psum's backward is the identity
@@ -323,9 +350,10 @@ def moe_apply_ep_shardmap(params, x, cfg: ModelConfig, ctx):
     router = {"router": coll.model_copy(params["router"], ctx)}
 
     gates, idx, me, ce = _route_raw(router, xm, cfg)
-    axes = (m,) + tuple(ctx.batch_axes)
-    me = coll.pmean(me, mesh, axes)
-    ce = coll.pmean(ce, mesh, axes)
+    # over the model axis a sum of statistics every rank's loss holds
+    # (identity backward), over the data axes one of the ranks' own
+    me, ce = (coll.data_psum(coll.psum(v, mesh, m), ctx) / (tp * ctx.dp)
+              for v in (me, ce))
     aux = e * torch.sum(me * ce)
     flat_e = idx.reshape(-1)
     dest_rank = flat_e // e_loc

@@ -187,20 +187,21 @@ class PagedAux(NamedTuple):
 
 
 def _paged_decode_attn_ro(params, x, cfg, plan, state, cur_pos,
-                          paged: PagedAux):
+                          paged: PagedAux, ctx=None):
     """x: (B,1,D); state: {"kp","vp"} (NP+1, PS, kvp, hd), one layer's
     page slice, read only. Attends over the stale pool through the stats
     walk and LSE-merges the current token's fresh k/v. Returns
-    (y, {"k_new", "v_new"}) with the (B, kvp, hd) new kv."""
+    (y, {"k_new", "v_new"}) with the (B, kvp, hd) new kv. Under tensor
+    parallelism on the rank's heads and its pool's kv heads."""
     q, k, v = attn_mod.qkv(params, x, cfg, plan,
-                           token_positions(cfg, cur_pos))
+                           token_positions(cfg, cur_pos), ctx)
     k_new, v_new = k[:, 0], v[:, 0]
     out = attn_mod.paged_decode_attention_ro(
         q, state["kp"], state["vp"], paged.page_table, paged.lengths,
         k_new, v_new, backend=paged.backend,
     )
-    return attn_mod.out_proj(params, out, plan), {"k_new": k_new,
-                                                  "v_new": v_new}
+    return attn_mod.out_proj(params, out, plan, ctx), {"k_new": k_new,
+                                                       "v_new": v_new}
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +369,7 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
         cur_pos = _cur_pos(positions)
         if paged is not None:
             att, new_state = _paged_decode_attn_ro(
-                params["attn"], h, cfg, plan, state, cur_pos, paged)
+                params["attn"], h, cfg, plan, state, cur_pos, paged, ctx)
         elif cfg.decode_appended_kv:
             att, new_state = _ring_decode_attn_ro(
                 params["attn"], h, cfg, plan, state, cur_pos, ctx)

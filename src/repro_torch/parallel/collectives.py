@@ -17,7 +17,10 @@ calls on the process group of one axis of a running
   reverse (reduce-scatter, ``tiled=True``), for the ZeRO-1 update;
 - :func:`model_psum`, :func:`model_copy`, :func:`model_reduce`,
   :func:`model_gather`, :func:`model_block` — Megatron's forms over a
-  ``ParallelContext``'s model axis (the identity at tp 1).
+  ``ParallelContext``'s model axis (the identity at tp 1);
+- :func:`data_psum`, :func:`data_pmean`, :func:`data_gather`,
+  :func:`data_rank` — the same context's batch axes (the identity at
+  dp 1).
 
 Gradients. ``psum``/``pmean``, ``all_gather``, ``psum_scatter`` and
 ``all_to_all`` of a tensor that needs a gradient run as
@@ -28,10 +31,12 @@ gather's takes this rank's block, a reduce-scatter's is an all-gather,
 an all-to-all's is the reverse all-to-all; :func:`model_copy` (identity
 forward, a sum backward) marks the input of every product whose weight
 the model axis splits, and :func:`model_block`'s backward is an
-all-gather. :func:`pmax` takes no gradient. Every rank issues the
-backward's collectives in the same order (one program, one graph), so a
-recomputation under ``torch.utils.checkpoint`` reissues the forward's at
-the same point on every rank.
+all-gather. :func:`pmax` takes no gradient. The data axes take the
+other rule: the data ranks hold different losses (each its rows'), so
+:func:`data_psum`'s backward sums the ranks' cotangents. Every rank
+issues the backward's collectives in the same order (one program, one
+graph), so a recomputation under ``torch.utils.checkpoint`` reissues the
+forward's at the same point on every rank.
 
 Transport. The caller names the backend when it launches the ranks, and
 nothing picks or falls back to another. Ranks with a card each use
@@ -400,6 +405,76 @@ def model_copy(x: torch.Tensor, ctx) -> torch.Tensor:
     if not (tensor_parallel(ctx) and _grad(x)):
         return x
     return _Copy.apply(x, ctx.mesh, ctx.model_axis)
+
+
+# The data axes. A statistic each data rank computes from its own rows
+# (the MoE router's load-balance means) is averaged over a context's
+# batch axes, and every rank then holds the whole batch's value. Unlike
+# the model axis, the data ranks hold DIFFERENT losses: the ZeRO-1 step
+# weights each rank's by its share of the tokens and sums the ranks'
+# gradients. So the whole gradient of such a statistic is the sum of the
+# ranks' cotangents, not any one rank's: the backward of
+# :func:`data_psum` is a sum over the data axes, where the model axis's
+# sum (:func:`psum`, :func:`model_psum`) takes the identity.
+
+def data_parallel(ctx) -> bool:
+    """True when ``ctx`` splits the batch over more than one rank."""
+    return ctx is not None and ctx.mesh is not None and ctx.dp > 1
+
+
+def data_rank(ctx) -> int:
+    """This rank's index over ``ctx``'s batch axes (major to minor, the
+    order ``sharding.batch_spec`` gives the rows in); 0 without a
+    mesh."""
+    if ctx is None or ctx.mesh is None:
+        return 0
+    r = 0
+    for a in ctx.batch_axes:
+        r = r * ctx.mesh.shape[a] + ctx.mesh.coord(a)
+    return r
+
+
+class _DataSum(torch.autograd.Function):
+    """A sum over the data axes whose backward sums the ranks' cotangents
+    over the same axes (the data ranks' losses differ)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axes), None, None
+
+
+def data_psum(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The sum of ``x`` over ``ctx``'s batch axes (the identity at one
+    data rank). Backward: the sum over the same axes of the ranks'
+    cotangents."""
+    if not data_parallel(ctx):
+        return x
+    if _grad(x):
+        return _DataSum.apply(x, ctx.mesh, tuple(ctx.batch_axes))
+    return psum(x, ctx.mesh, ctx.batch_axes)
+
+
+def data_pmean(x: torch.Tensor, ctx) -> torch.Tensor:
+    """:func:`data_psum` over the number of data ranks: the whole batch's
+    mean of a per-rank mean over equal row counts."""
+    return data_psum(x, ctx) / ctx.dp if data_parallel(ctx) else x
+
+
+def data_gather(x: torch.Tensor, ctx, dim: int = 0) -> torch.Tensor:
+    """The data ranks' blocks concatenated along ``dim`` in
+    :func:`data_rank` order (the identity at one data rank); no
+    gradient."""
+    if not data_parallel(ctx):
+        return x
+    x = x.detach()
+    for a in reversed(ctx.batch_axes):  # the minor axis first
+        x = all_gather(x, ctx.mesh, a, dim)
+    return x
 
 
 def model_reduce(x: torch.Tensor, ctx, seq_dim=None) -> torch.Tensor:

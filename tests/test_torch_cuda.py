@@ -1353,6 +1353,30 @@ def test_paged_attention_stats_at_the_vlm_serve_shape(dev, dtype):
         torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kvh,g", [(4, 5), (2, 8)])
+def test_paged_attention_stats_at_the_tensor_parallel_rank_shapes(
+        dev, dtype, kvh, g):
+    """The paged walk at one of two tensor-parallel ranks' decode shapes,
+    B 32, hd 128, 40-page tables of 16-token pages: Qwen2.5-14B's 4 kv
+    heads of G 5 and Qwen3-MoE-30B-A3B's 2 kv heads of G 8 (the kernel's
+    largest group)."""
+    rng = np.random.default_rng(kvh * 10 + g)
+    maxp, ps = 40, 16
+    lengths = rng.integers(512, maxp * ps, 32)
+    lengths[:3] = (0, maxp * ps, 1)
+    host, cuda = _paged_case(rng, dev, dtype, 32, kvh, g, 128, ps, maxp,
+                             lengths)
+    want = ref.paged_attention_stats(*host)
+    pa.reset_launches()
+    got = pa.paged_attention_stats(*cuda)
+    torch.cuda.synchronize()
+    assert pa.launches["paged_attention_stats"] == 1
+    tol = LM_TOL[dtype]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("inclusive", [False, True])
 def test_chunked_gla_on_the_card_matches_the_cpu(dev, inclusive,
                                                  monkeypatch):

@@ -601,15 +601,3 @@ def test_zero1_compressed_blocks_are_slices_of_jax(zero1_compressed, what):
             off = diff > 1e-5 * max(scale, 1e-30)
             assert off.mean() <= 0.01, (what, k, off.mean())
             assert diff.max() <= 2 * code * 1.001 + 1e-12, (what, k)
-
-
-def test_zero1_step_refuses_data_parallel_moe():
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.launch import train as ltrain
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.parallel.sharding import Mesh, ParallelContext
-
-    cfg = reduced(get_config("qwen3-moe-30b-a3b"))
-    ctx = ParallelContext(mesh=Mesh((2, 1), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ltrain.build_train_step(cfg, ctx, AdamWConfig())

@@ -352,25 +352,11 @@ def test_engine_matches_jax_engine_on_every_rank(refs, ranks):
             np.testing.assert_array_equal(a, b, err_msg=path)
 
 
-def test_gspmd_moe_refuses_data_parallel_drops():
-    """moe_apply at dp > 1 with capacity drops: the capacity and dispatch
-    positions are the whole batch's, which a rank's rows cannot give,
-    so it refuses (before any collective); decode's no_drop runs."""
-    from repro_torch.models import moe
-    from repro_torch.parallel.sharding import Mesh, ParallelContext
-
-    cfg = tpr.case_config("moe_gspmd_1x2")
-    ctx = ParallelContext(mesh=Mesh((2, 2), ("data", "model")), use_ep=True)
-    x = torch.zeros((2, 4, cfg.d_model))
-    params = {"router": torch.zeros((cfg.d_model, cfg.num_experts))}
-    with pytest.raises(NotImplementedError, match="dp > 1"):
-        moe.moe_apply(params, x, cfg, ctx)
-
-
 def test_tensor_parallel_refuses_what_it_does_not_run(monkeypatch):
     """tp > 1 refuses the families it does not split yet, a sequence the
-    model axis does not divide under sp, the paged path under a mesh and
-    a data-parallel engine; gradients flow (the model-axis collectives
+    model axis does not divide under sp, a data-parallel engine (dense or
+    paged: the paged pool runs at a data axis of 1) and the paged swap
+    service under a mesh; gradients flow (the model-axis collectives
     have a backward, held against one process in
     ``test_torch_tp_train.py``)."""
     from repro_torch.core import engine as eng
@@ -385,12 +371,19 @@ def test_tensor_parallel_refuses_what_it_does_not_run(monkeypatch):
         with pytest.raises(NotImplementedError, match="tensor parallelism"):
             tf.check_tp(cfg, ctx)
     cfg = tpr.case_config("dense_1x2")
-    with pytest.raises(NotImplementedError, match="paged"):
-        model.make_paged_kv_config(cfg, ctx, num_pages=4, page_size=2,
+    pcfg = model.make_paged_kv_config(cfg, ctx, num_pages=4, page_size=2,
+                                      max_pages_per_seq=2)
+    assert pcfg.kv_heads == tf.plan_for(cfg, ctx).kv_phys // 2
+    dp_ctx = ParallelContext(mesh=Mesh((2, 2), ("data", "model")))
+    with pytest.raises(NotImplementedError, match="data-parallel LM engine"):
+        model.make_paged_kv_config(cfg, dp_ctx, num_pages=4, page_size=2,
                                    max_pages_per_seq=2)
+    swap = eng.LMEngineConfig(paged=True, slots=2, prompt_len=2, gen_len=2,
+                              page_size=2, host_pages=8)
+    with pytest.raises(NotImplementedError, match="swap service"):
+        eng.make_swap_service(swap, cfg, ctx)
     with pytest.raises(ValueError, match="sequence parallelism"):
         tf._seq_parallel(ctx._replace(sp=True), torch.zeros((1, 3, 4)))
-    dp_ctx = ParallelContext(mesh=Mesh((2, 2), ("data", "model")))
     with pytest.raises(NotImplementedError, match="model axis only"):
         serve.engine_step(cfg, dp_ctx, eng.LMEngineConfig(), {}, "cpu")
     # model_psum at tp 2 now returns a gradient: the transport stands in
