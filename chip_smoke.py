@@ -104,7 +104,11 @@ Phases, each printing one JSON line:
                   G = 8, the paged kernel's largest group), bf16, and
                   both at one of lm_tp_serve's 2 ranks' heads (flash
                   20 q / 4 kv and 16 q / 2 kv, the paged walk 4 kv of G
-                  5 and 2 kv of G 8); each
+                  5 and 2 kv of G 8); the walk at one of lm_dp_serve's
+                  data ranks' 16 slots (8 kv of G 5); flash at one of
+                  lm_tp_families' ranks' heads (vlm 14 q / 2 kv; the
+                  hybrid's 30 / 6 padded heads as 15 / 3, hd 64, window
+                  1,024, 2,048 tokens; audio 16 / 16, hd 64); each
                   with its library call's device time where there is one,
                   the paged cases with their split count;
 16. lm_serve_f32 — Qwen2.5-14B at full width cut to 4 layers, f32: the
@@ -116,7 +120,7 @@ Phases, each printing one JSON line:
                   host cold tier: a kill mid-decode, recovery bit for bit
                   the never-crashed twin's, token streams byte-identical to
                   the twin's and to a plain engine's (``ref``);
-18. lm_serve    — 6 of its 48 layers (widths kept) in bf16 with the
+18. lm_serve    — 4 of its 48 layers (widths kept) in bf16 with the
                   flash prefill, 96
                   requests (512-token prompts, caps up to 128) through 32
                   slots: the kernel engine (the launch counts), the plain
@@ -125,7 +129,7 @@ Phases, each printing one JSON line:
                   decide at least 10% (and 64) of its rows with equal
                   argmax, and a per-layer walk check of the live pool;
 19. lm_moe_serve — the same for Qwen3-MoE-30B-A3B at full width cut to
-                  6 of its 48 layers, in bf16 (128 experts, top 8; 11
+                  4 of its 48 layers, in bf16 (128 experts, top 8; 7
                   GB of weights), after the dense weights are freed: the
                   same engine and requests, the same checks, and the share
                   of (token, layer) top-8 expert sets on which the kernel
@@ -137,7 +141,7 @@ Phases, each printing one JSON line:
                   (1,024 media positions) against the plain version and
                   against no media, whose logits it must change;
 21. lm_hybrid_serve — Hymba-1.5B (attention in a 1,024-token window beside
-                  a Mamba branch), 6 of its 32 layers in bf16, 32
+                  a Mamba branch), 4 of its 32 layers in bf16, 32
                   requests of
                   2,048 tokens through the dense ring engine with the
                   flash prefill, the plain engine beside it; the
@@ -147,7 +151,7 @@ Phases, each printing one JSON line:
                   two plain versions; in f32 at full width and that depth
                   the 10% share; every layer's flash call against its plain
                   version; a crash-and-recover cycle (below);
-22. lm_ssm_serve — RWKV6-1.6B (attention-free), 6 of its 24 layers in
+22. lm_ssm_serve — RWKV6-1.6B (attention-free), 4 of its 24 layers in
                   bf16, 32 requests through the dense engine: no hand-written
                   kernel on its path; the card against the CPU in f32 at
                   4 layers, 8 requests: equal token streams, states within
@@ -160,7 +164,7 @@ Phases, each printing one JSON line:
                   whose final state and responses equal the never-crashed
                   kernel run's bit for bit (hybrid too, after phase 20's
                   kernel run; its admission prefills launch flash);
-23. lm_audio     — MusicGen-large (4 codebooks, G 1), 16 of its 48 layers
+23. lm_audio     — MusicGen-large (4 codebooks, G 1), 12 of its 48 layers
                   in bf16: 8 x 512 frames through prefill with the flash
                   kernel, then 64 decode steps; the plain version beside
                   it; the teacher-forced rows with the 10% share; every
@@ -240,7 +244,34 @@ Phases, each printing one JSON line:
                   steps on each rank, each rank's live pool walked by the
                   kernel against its plain version. The one-process runs
                   come first, their weights freed before the ranks
-                  start.
+                  start;
+28. lm_dp_serve  — the LM engine over 2 data ranks: lm_tp_serve's ranks
+                  build a (2, 1) mesh and run Qwen2.5-14B (2 layers)
+                  through the dense and the paged engine and
+                  Qwen3-MoE-30B-A3B (2 layers, GSPMD moe_apply at E/k,
+                  dropless) through the paged one over the same
+                  requests, each rank 8 of the 16 slots (the integers
+                  whole on every rank, the whole admission batch
+                  prefilled on every rank, the paged walk on a rank's
+                  slots): the ranks' integers equal, and equal to the one
+                  process's (the dense engine's to the one process
+                  decoding in the ranks' row blocks), the teacher-forced
+                  rows of each rank's slots (ring and paged) by
+                  lm_serve's rule, the launches layers x steps; then in
+                  f32 at 2 layers the paged engine with the swap service
+                  after every step (a pool of 5 of 8 worst-case requests):
+                  every integer equal to the one process's run, an
+                  eviction and a restore, each rank parking pages of its
+                  own slots;
+29. lm_tp_families — the vlm, hybrid (padded heads), ssm and audio models
+                  at full width cut to 2 layers, bf16, on lm_tp_serve's
+                  2 model ranks: a prefill (flash at a rank's heads) and
+                  16 decode steps fed the one-process run's tokens, the
+                  ranks' logits bit-equal, the rows by lm_serve's rule;
+                  in f32 the logits and every decode-state leaf (the
+                  rank's block) within 1e-5 of each value's scale. The
+                  hybrid's one process runs the padded params at the
+                  padded plan, its padded q heads masked.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Any mismatch raises and exits non-zero before the last line. Without a
@@ -327,9 +358,10 @@ MERCI_RTOL, MERCI_ATOL = 1e-3, 1e-4  # tests/test_dlrm.py
 # qwen2_5_14b.py: 48 layers, d_model 5120, 40 q / 8 kv heads, hd 128,
 # d_ff 13824, vocab 152064, bf16), random weights from the seed
 LM_ARCH = "qwen2.5-14b"
-LM_LAYERS = 6  # lm_serve cut from 48 (widths kept), to make room for the
+LM_LAYERS = 4  # lm_serve cut from 48 (widths kept), to make room for the
 # multi-rank phases within the script's time limit (12 before tp_train,
-# 8 before dp_moe_train and the paged lm_tp_serve)
+# 8 before dp_moe_train and the paged lm_tp_serve, 6 before lm_dp_serve
+# and lm_tp_families)
 LM_ENGINE = dict(num_queues=8, capacity=16, prompt_len=512, gen_len=128,
                  slots=32, admit_per_step=8, paged=True, page_size=16)
 LM_REQUESTS = 96
@@ -345,8 +377,9 @@ LM_LONG = (4, 16384)
 # (G = 8) in lm_kernels
 LM_MOE_ARCH = "qwen3-moe-30b-a3b"
 LM_MOE_REQUESTS = 48  # cut from lm_serve's 96 to keep the script's time
-LM_MOE_LAYERS = 6  # cut from 48 (widths kept) for the script's time (8
-# before dp_moe_train and the paged lm_tp_serve)
+LM_MOE_LAYERS = 4  # cut from 48 (widths kept) for the script's time (8
+# before dp_moe_train and the paged lm_tp_serve, 6 before lm_dp_serve and
+# lm_tp_families)
 LM_MOE_HEADS = (32, 4)
 # the other four families, each at full width and depth in bf16 with
 # random weights from the seed (src/repro_torch/configs/): Qwen2-VL-7B (28
@@ -361,11 +394,13 @@ LM_MOE_HEADS = (32, 4)
 LM_VLM_ARCH, LM_VLM_REQUESTS = "qwen2-vl-7b", 32
 LM_VLM_LAYERS = 4  # cut from 28 (widths kept) for the script's time
 LM_HYBRID_ARCH = "hymba-1.5b"
-LM_HYBRID_LAYERS = 6  # cut from 32 (widths kept) for the script's time
+LM_HYBRID_LAYERS = 4  # cut from 32 (widths kept) for the script's time
+# (6 before lm_dp_serve and lm_tp_families)
 LM_HYBRID_ENGINE = dict(LM_ENGINE, paged=False, prompt_len=2048,
                         cache_len=1024)
 LM_SSM_ARCH = "rwkv6-1.6b"
-LM_SSM_LAYERS = 6  # cut from 24 (widths kept) for the script's time
+LM_SSM_LAYERS = 4  # cut from 24 (widths kept) for the script's time (6
+# before lm_dp_serve and lm_tp_families)
 LM_SSM_ENGINE = dict(LM_ENGINE, paged=False)
 LM_DENSE_REQUESTS = 32  # hybrid and ssm
 # their crash-and-recover cycles: a flush every LM_RECOVER_EVERY engine
@@ -377,7 +412,8 @@ LM_RECOVER_EVERY, LM_RECOVER_KILL = 8, 20
 LM_SSM_CPU = (4, 8)
 LM_SSM_CPU_ENGINE = dict(LM_SSM_ENGINE, slots=8, gen_len=32)
 LM_AUDIO_ARCH = "musicgen-large"
-LM_AUDIO_LAYERS = 16  # cut from 48 (widths kept) for the script's time
+LM_AUDIO_LAYERS = 12  # cut from 48 (widths kept) for the script's time
+# (16 before lm_dp_serve and lm_tp_families)
 LM_AUDIO_FRAMES = (8, 512)  # prompts x frames of 4 codebook tokens
 LM_AUDIO_STEPS = 64  # decode steps after the prefill
 LM_TF_PROMPTS = 8  # prompts of the prefill teacher-forced checks
@@ -519,6 +555,42 @@ LM_TP_TF_PROMPTS, LM_TP_TF_STEPS, LM_TP_F32_STEPS = 8, 24, 4
 # to the one-process paged run by lm_serve's rule
 LM_TP_PAGED_ENGINE = dict(LM_TP_ENGINE, paged=True,
                           page_size=LM_ENGINE["page_size"])
+# lm_dp_serve: the LM engine over LM_DP_RANKS data ranks sharing the card
+# (gloo, host-staged), in lm_tp_serve's two launches (the same ranks build
+# a (2, 1) mesh after their (1, 2) one): Qwen2.5-14B at LM_TP_LAYERS
+# layers through the dense and the paged engine, Qwen3-MoE-30B-A3B
+# through the paged engine on GSPMD moe_apply at E/k (dropless, as the
+# one process), both over lm_tp_serve's requests (LM_TP_ENGINE: 16 slots,
+# 8 a rank; every rank prefills the whole admission batch and keeps its
+# slots' rows), held to lm_tp_serve's one-process runs: every integer of
+# each engine's final state, and the teacher-forced rows (the ring and
+# the paged path, each rank its rows) by lm_serve's rule. Then the dense
+# model at LM_TP_F32_LAYERS in f32 through the paged engine with the swap
+# service after every step (LM_DP_SWAP_ENGINE: 8 slots of 64-token
+# prompts and caps of 32, a pool of 5 of the 8 worst-case requests, the
+# host tier the 7 victims the config needs): every integer equal to the
+# one process's run, an eviction and a restore, and each rank parking
+# pages of its own slots
+LM_DP_RANKS = LM_TP_RANKS
+LM_DP_SWAP_ENGINE = dict(num_queues=4, capacity=16, prompt_len=64,
+                         gen_len=32, slots=8, admit_per_step=4, paged=True,
+                         page_size=16, num_pages=5 * 6, host_pages=7 * 6)
+LM_DP_SWAP_REQUESTS = 16
+# lm_tp_families: the vlm, hybrid, ssm and audio models on lm_tp_serve's
+# dense launch over its (1, 2) mesh, bf16 at full width cut to
+# LM_FAM_TP_LAYERS layers: (arch, prompts, tokens) prefilled (flash at a
+# rank's heads: rows 10g-10i), then LM_FAM_TP_STEPS decode steps fed the
+# one-process run's greedy tokens, held to it by lm_serve's rule, the
+# ranks' logits bit-equal; each again at LM_TP_F32_LAYERS in f32 for
+# LM_TP_F32_STEPS steps, logits and every decode-state leaf (the rank's
+# block) within POOL_REL_TOL of each value's scale. The hybrid's one
+# process runs the ranks' padded params (30 q / 6 kv heads) at the padded
+# plan, its padded q heads masked by attention.q_head_mask
+LM_FAM_TP_LAYERS = 2
+LM_FAM_TP = {"vlm": (LM_VLM_ARCH, 8, 512), "hybrid": (LM_HYBRID_ARCH, 8, 2048),
+             "ssm": (LM_SSM_ARCH, 8, 512),
+             "audio": (LM_AUDIO_ARCH, 8, LM_AUDIO_FRAMES[1])}
+LM_FAM_TP_STEPS = 16
 # the profiled window: a copy of the engine state after this step runs the
 # next LM_PROFILE_STEPS steps under torch.profiler
 LM_PROFILE_STEP, LM_PROFILE_STEPS = 40, 16
@@ -2420,8 +2492,13 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
     4 kv) and at the vlm model's (28 q / 4 kv: G 7); flash at the hybrid
     model's (25 q / 5 kv, hd 64, 2,048-token prompts, its window of
     1,024) in bf16 and f32, and at the audio model's (32 q / 32 kv, hd
-    64). Returns the bf16 entries of the dense main path, each other
-    shape under ``<family>_shape``."""
+    64); both at a tensor-parallel rank's heads of the dense and MoE
+    models, the walk at a data rank's half of the slots, and flash at a
+    tensor-parallel rank's heads of the vlm, hybrid and audio models.
+    Returns the bf16 entries of the dense main path, each other shape
+    under ``<family>_shape``."""
+    from repro_torch.parallel.sharding import head_plan
+
     out, entries = {"phase": "lm_kernels", "nvidia_smi": smi}, {}
     h_moe, kvh_moe = LM_MOE_HEADS
     fam = {name: cfg_mod.get_config(arch) for name, arch in (
@@ -2441,7 +2518,11 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
             ("tp_dense_bfloat16", torch.bfloat16, None, None,
              (8 // LM_TP_RANKS, 5)),
             ("tp_moe_bfloat16", torch.bfloat16, None, None,
-             (kvh_moe // LM_TP_RANKS, h_moe // kvh_moe))):
+             (kvh_moe // LM_TP_RANKS, h_moe // kvh_moe)),
+            # lm_dp_serve's paged ranks: each walks its half of the slots
+            # at every kv head
+            ("dp_dense_bfloat16", torch.bfloat16,
+             LM_TP_ENGINE["slots"] // LM_DP_RANKS, None, (8, 5))):
         args = lm_pool_inputs(torch, np, dt, SEED + 20, seqs, tokens, *heads)
         q, kp, vp, table, lengths = args
         b, kvh, g, hd = q.shape
@@ -2476,6 +2557,18 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
               8 // LM_TP_RANKS, s, 128, (0,)),
              ("tp_moe_bfloat16", torch.bfloat16, h_moe // LM_TP_RANKS,
               kvh_moe // LM_TP_RANKS, s, 128, (0,))]
+    # lm_tp_families' ranks: a rank's heads of the vlm (28 / 4), the
+    # hybrid (25 / 5 padded to 30 / 6: hd 64 with its window, the TMA
+    # path) and the audio (32 / 32, hd 64)
+    for name, arch, seq in (("vlm", LM_VLM_ARCH, s),
+                            ("hybrid", LM_HYBRID_ARCH,
+                             LM_HYBRID_ENGINE["prompt_len"]),
+                            ("audio", LM_AUDIO_ARCH, LM_AUDIO_FRAMES[1])):
+        c = fam[name]
+        plan = head_plan(c.num_heads, c.num_kv_heads, LM_TP_RANKS)
+        cases.append((f"tp_{name}_bfloat16", torch.bfloat16,
+                      plan.hp // LM_TP_RANKS, plan.kv_phys // LM_TP_RANKS,
+                      seq, c.resolved_head_dim, (c.sliding_window,)))
     for name, dts, seq in (
             ("vlm", (torch.bfloat16,), s),
             ("hybrid", (torch.bfloat16, torch.float32),
@@ -2532,7 +2625,7 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
         raise AssertionError(f"lm_kernels: kernels outside tolerance: {bad}")
     entries["paged_attention_stats"]["moe_shape"] = out["paged_moe_bfloat16"]
     entries["paged_attention_stats"]["vlm_shape"] = out["paged_vlm_bfloat16"]
-    for name in ("tp_dense", "tp_moe"):
+    for name in ("tp_dense", "tp_moe", "dp_dense"):
         entries["paged_attention_stats"][f"{name}_shape"] = out[
             f"paged_{name}_bfloat16"]
     entries["flash_attention"]["moe_shape"] = out[
@@ -2540,6 +2633,9 @@ def phase_lm_kernels(torch, np, F, pa, fa, ref, cfg_mod, smi):
     for name in ("tp_dense", "tp_moe"):
         entries["flash_attention"][f"{name}_shape"] = out[
             f"flash_{name}_bfloat16_window0"]
+    for name in ("vlm", "hybrid", "audio"):
+        entries["flash_attention"][f"tp_{name}_shape"] = out[
+            f"flash_tp_{name}_bfloat16_window{fam[name].sliding_window}"]
     for name, key in (("vlm_shape", "vlm_bfloat16"),
                       ("hybrid_shape", "hybrid_bfloat16"),
                       ("hybrid_f32_shape", "hybrid_float32"),
@@ -5153,34 +5249,50 @@ def _sync(torch, dev):
 
 
 def lm_tp_tf_run(torch, model, moe, cfg, ctx, params, prompts, tokens,
-                 steps=LM_TP_TF_STEPS, routes=None, dev="cuda"):
+                 steps=LM_TP_TF_STEPS, routes=None, dev="cuda", timing=None):
     """The teacher-forced rows: prefill ``prompts`` (flash), then one
     decode step a row of ``tokens`` (or, with ``tokens`` None, ``steps``
     steps each fed the previous logits' argmax). Returns (the logits of
     each step on the host, the tokens fed, the final decode state); with
     ``routes`` (a list) the decode steps' expert ids are appended to it,
-    a list of steps for each layer."""
-    b, s = prompts.shape
+    a list of steps for each layer; with ``timing`` (a dict) the prefill's
+    and each decode step's host seconds and the decode steps' collective
+    calls and bytes are put in it."""
+    from repro_torch.parallel import collectives as coll
+
+    b, s = prompts.shape[:2]  # (b, s) tokens or (b, s, K) codebook frames
     n = len(tokens) if tokens is not None else steps
+    _sync(torch, dev)
+    t_pre = time.perf_counter()
     st = model.make_decode_state(cfg, ctx, b, s + n, dev)
     st, lg = model.prefill(params, torch.from_numpy(prompts).to(dev), st, cfg,
                            ctx, backend="cuda" if dev == "cuda" else "ref")
+    _sync(torch, dev)
     logits, fed = [lg.cpu()], []
     box = {"rows": b, "ids": []}
     orig = _recording_routes(moe, box) if routes is not None else None
+    if timing is not None:
+        timing.update(prefill_s=time.perf_counter() - t_pre, step_s=[])
+        calls, nbytes = coll.stats["calls"], coll.stats["bytes"]
     try:
         for i in range(n):
             tok = lg.argmax(-1).to(torch.int32) if tokens is None \
                 else tokens[i].to(dev)
             fed.append(tok.cpu())
+            t = time.perf_counter()
             st, lg = model.decode_step(params, tok, st, cfg, ctx)
             logits.append(lg.cpu())
+            if timing is not None:
+                timing["step_s"].append(time.perf_counter() - t)
     finally:
         if orig is not None:
             moe._route_raw = orig
     if routes is not None:
         routes.extend(box["ids"][i::cfg.num_layers]
                       for i in range(cfg.num_layers))
+    if timing is not None:
+        timing.update(calls=(coll.stats["calls"] - calls) / max(n, 1),
+                      bytes=(coll.stats["bytes"] - nbytes) / max(n, 1))
     return logits, fed, st
 
 
@@ -5254,8 +5366,55 @@ def lm_tp_engine_run(torch, np, eng, rb, cfg, ctx, params, ecfg, prompts,
     for row, s in zip(steps, times):
         row["s"] = s
     resp = lm_responses(np, rb, state, caps, ecfg.num_queues)
+    ints = int_leaves(torch, state)
     del state
-    return {"steps": steps, "launches": launches, "responses": resp}
+    return {"steps": steps, "launches": launches, "responses": resp,
+            "ints": ints}
+
+
+def int_leaves(torch, state, prefix=""):
+    """Every integer (and bool) leaf of an engine state, by path, as
+    numpy on the host: the rings, scheduler, slots, responses, the pool's
+    allocator and the decode state's positions."""
+    out = {}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        state = state._asdict()
+    if isinstance(state, dict):
+        for k, v in state.items():
+            out.update(int_leaves(torch, v, f"{prefix}/{k}"))
+    elif not state.dtype.is_floating_point:
+        out[prefix] = state.cpu().numpy()
+    return out
+
+
+def _row_leaf(path):
+    """The slot-row axis of a dense engine's decode-state leaf (None: a
+    leaf every data rank holds whole)."""
+    if path == "/decode/pos":
+        return 0
+    return 1 if path.startswith("/decode/layers/") else None
+
+
+def int_mismatches(np, got, want, rows):
+    """Integer leaves of a rank's final engine state that differ from the
+    one process's (``want``, whole): the decode state's rows against the
+    rank's ``rows`` of them."""
+    bad = []
+    for path, w in want.items():
+        ax = _row_leaf(path)
+        if ax is not None and got[path].shape != w.shape:
+            w = w[(slice(None),) * ax + (slice(*rows),)]
+        if got[path].shape != w.shape or not np.array_equal(got[path], w):
+            bad.append(path)
+    return bad
+
+
+def replicated_equal(np, ranks_ints):
+    """Whether the ranks' integer leaves that every data rank holds whole
+    are equal bit for bit."""
+    first = ranks_ints[0]
+    return all(np.array_equal(r[p], v) for r in ranks_ints[1:]
+               for p, v in first.items() if _row_leaf(p) is None)
 
 
 def _tf_digest(logits):
@@ -5371,6 +5530,18 @@ def lm_tp_rank(rank, world, spec):
             torch.cuda.empty_cache()
         out["f32"] = lm_tp_f32_rank(torch, model, moe, fa, ctx, spec, ref,
                                     tf_prompts)
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        # lm_dp_serve and lm_tp_families on the same ranks
+        t = time.perf_counter()
+        out["dp"] = lm_dp_rank(torch, np, eng, rb, model, pk, fa, pa, spec,
+                               ref, box, dev)
+        out["dp"]["seconds"] = time.perf_counter() - t
+        if spec.get("families"):
+            t = time.perf_counter()
+            out["families"] = lm_fam_rank(torch, np, model, moe, fa, mesh,
+                                          spec["families"], dev)
+            out["families_seconds"] = time.perf_counter() - t
     finally:
         moe._route_raw = route
         for n, fn in orig.items():
@@ -5409,16 +5580,440 @@ def lm_tp_f32_rank(torch, model, moe, fa, ctx, spec, ref, prompts):
             <= POOL_REL_TOL}
 
 
+# ---------------------------------------------------------------------------
+# lm_dp_serve: the LM engine over data ranks, in lm_tp_serve's launches
+# ---------------------------------------------------------------------------
+
+def lm_blocked_dense_run(torch, eng, model, cfg, ctx, params, ecfg, prompts,
+                         caps, dev):
+    """The dense engine in one process with each decode step run in
+    LM_DP_RANKS row blocks, the shapes a data rank's decode takes: a bf16
+    ring decode of 16 rows and one of 8 take other batched-product
+    algorithms and differ in their last bits, which flips near-tie tokens
+    (the paged engine's walk is per row and does not). Returns the final
+    integers."""
+    from repro_torch.models.model import DecodeState
+    from repro_torch.tree import tree_map
+
+    def prefill_fn(p, rows):
+        st = model.make_decode_state(cfg, ctx, ecfg.admit_per_step,
+                                     ecfg.cache_len, dev)
+        return model.prefill(p, rows, st, cfg, ctx, chunk=16,
+                             backend=ecfg.kernel_backend)
+
+    def decode_fn(p, toks, st):
+        n = toks.shape[0] // LM_DP_RANKS
+        outs = [model.decode_step(
+            p, toks[b], DecodeState(tree_map(lambda t: t[:, b], st.layers),
+                                    st.pos[b]), cfg, ctx)
+            for b in (slice(i * n, (i + 1) * n) for i in range(LM_DP_RANKS))]
+        return DecodeState(
+            {k: torch.cat([o[0].layers[k] for o in outs], 1)
+             for k in outs[0][0].layers},
+            torch.cat([o[0].pos for o in outs])), torch.cat(
+                [o[1] for o in outs])
+
+    state = eng.lm_make(ecfg, model.make_decode_state(
+        cfg, ctx, ecfg.slots, ecfg.cache_len, dev))
+    state = lm_inject_all(torch, eng, state, ecfg, prompts, caps)
+    for _ in range(len(prompts) * ecfg.gen_len):
+        state = eng.lm_engine_step(state, ecfg, cfg, ctx, params, prefill_fn,
+                                   decode_fn)
+        if int(state.completed) == len(prompts):
+            return int_leaves(torch, state)
+    raise AssertionError("lm_dp_serve: the blocked one-process engine did "
+                         "not complete its requests")
+
+
+def lm_dp_tf_rows(torch, model, cfg, ctx, params, prompts, tokens, dev):
+    """The teacher-forced rows through the ring path over data ranks:
+    this rank's rows of ``prompts`` prefilled into its block of the decode
+    state (``model.batch_rows``; an MoE block's capacity and dispatch
+    positions the whole batch's), then a decode step a row of ``tokens``
+    (its rows). Returns its rows' logits each step, on the host."""
+    b, s = prompts.shape
+    rows = model.batch_rows(b, ctx)
+    st = model.make_decode_state(cfg, ctx, b, s + len(tokens), dev)
+    st, lg = model.prefill(params, torch.from_numpy(prompts[rows]).to(dev),
+                           st, cfg, ctx,
+                           backend="cuda" if dev == "cuda" else "ref")
+    out = [lg.cpu()]
+    for tok in tokens:
+        st, lg = model.decode_step(params, tok[rows].to(dev), st, cfg, ctx)
+        out.append(lg.cpu())
+    return out
+
+
+def lm_dp_paged_tf_rows(torch, model, pk, cfg, ctx, params, prompts, tokens,
+                        dev):
+    """The teacher-forced rows through the paged path as the engine over
+    data ranks runs it: every rank prefills the whole batch
+    (``model.whole_batch``) into a pool whose allocator takes every row,
+    writing its rows' pages; then one ``paged_decode_step`` a row of
+    ``tokens`` (whole), the rank walking its rows. Returns its rows'
+    logits each step, on the host."""
+    from repro_torch.models.layers import dtype_of
+
+    b, s = prompts.shape
+    rows = model.batch_rows(b, ctx)
+    ps = LM_TP_PAGED_ENGINE["page_size"]
+    maxp = -(-(s + len(tokens)) // ps)
+    pcfg = model.make_paged_kv_config(cfg, ctx, num_pages=b * maxp,
+                                      page_size=ps, max_pages_per_seq=maxp)
+    kv = pk.make(pcfg, batch=b, dtype=dtype_of(cfg.dtype), device=dev)
+    backend = "cuda" if dev == "cuda" else "ref"
+    k, v, lg = model.prefill_kv(params, torch.from_numpy(prompts).to(dev),
+                                cfg, model.whole_batch(ctx),
+                                kernel_backend=backend)
+    ids = torch.arange(b, dtype=torch.int32, device=dev)
+    kv, landed = pk.prefill_into_pages(
+        kv, pcfg, ids, k, v, torch.ones((b,), dtype=torch.bool, device=dev),
+        own=(ids >= rows.start) & (ids < rows.stop))
+    del k, v
+    if not bool(landed.all()):
+        raise AssertionError("lm_dp_serve: a paged prefill did not land")
+    out = [lg[rows].cpu()]
+    for tok in tokens:
+        kv, lg, ok = model.paged_decode_step(params, tok.to(dev), kv, pcfg,
+                                             cfg, ctx, kernel_backend=backend)
+        if not bool(ok.all()):
+            raise AssertionError("lm_dp_serve: the paged pool ran dry")
+        out.append(lg.cpu())
+    return out
+
+
+def lm_dp_swap_run(torch, np, eng, cfg, ctx, params, seed, dev):
+    """LM_DP_SWAP_ENGINE's paged engine over LM_DP_SWAP_REQUESTS requests
+    (caps all gen_len) with the swap service after every step. Returns
+    the final integers, the tier's evictions and restores, the evictions
+    of this rank's own slots and the steps."""
+    ecfg = eng.LMEngineConfig(**LM_DP_SWAP_ENGINE, kernel_backend="auto")
+    swap, cold, _ = eng.make_swap_service(ecfg, cfg, ctx)
+    prompts, _ = lm_requests(np, cfg, LM_DP_SWAP_REQUESTS, seed,
+                             prompt_len=ecfg.prompt_len)
+    caps = np.full(LM_DP_SWAP_REQUESTS, ecfg.gen_len, np.int32)
+    own = [0]
+
+    def on_step(step, state):
+        n = cold.evictions
+        state = swap(state)
+        if cold.evictions > n and cold.parks(cold.order[-1]):
+            own[0] += 1
+        return state
+
+    state, times = lm_serve_run(torch, eng, cfg, ctx, params, ecfg, prompts,
+                                caps, on_step, dev)
+    return {"ints": int_leaves(torch, state), "evictions": cold.evictions,
+            "restores": cold.restores, "own_evictions": own[0],
+            "steps": len(times), "step_ms_median":
+                statistics.median(times) * 1e3}
+
+
+def _rows_stats(torch, got, want, rows, v, dev):
+    """lm_serve's row statistics of a rank's ``rows`` of each step's
+    logits against the one process's."""
+    return merge_rows([row_stats(torch, a.to(dev), b[slice(*rows)].to(dev), v)
+                       for a, b in zip(got, want)])
+
+
+def lm_dp_rank(torch, np, eng, rb, model, pk, fa, pa, spec, ref, box, dev):
+    """This rank of a (LM_DP_RANKS, 1) mesh: the whole seeded params (the
+    model axis is 1), lm_tp_serve's requests through the dense (not for
+    MoE) and the paged engine, each run's final integers; the
+    teacher-forced rows of its slots through the ring and the paged
+    path; with ``spec["swap"]`` the f32 swap pass. Launches, step and
+    collective times of each."""
+    from repro_torch.launch import mesh as lmesh
+
+    mesh = lmesh.make_test_mesh((LM_DP_RANKS, 1), ("data", "model"))
+    cfg = spec["dp_cfg"]
+    ctx = lmesh.make_context(mesh, cfg)  # GSPMD moe_apply
+    params = model.init_params(spec["seed"], cfg, ctx, dev)
+    prompts, caps, tf_prompts = lm_tp_requests(np, cfg, spec["seed"] + 2)
+    rows = model.batch_rows(LM_TP_ENGINE["slots"], ctx)
+    out = {"rows": (rows.start, rows.stop), "runs": {}}
+    engines = (("paged", LM_TP_PAGED_ENGINE),) if cfg.is_moe else (
+        ("dense", LM_TP_ENGINE), ("paged", LM_TP_PAGED_ENGINE))
+    for name, engine in engines:
+        out["runs"][name] = lm_tp_engine_run(
+            torch, np, eng, rb, cfg, ctx, params,
+            eng.LMEngineConfig(**engine, kernel_backend="auto"), prompts,
+            caps, box, dev)
+    tf_rows = model.batch_rows(tf_prompts.shape[0], ctx)
+    out["tf_rows"] = (tf_rows.start, tf_rows.stop)
+    fa.reset_launches()
+    logits = lm_dp_tf_rows(torch, model, cfg, ctx, params, tf_prompts,
+                           ref["tf_tokens"], dev)
+    out["tf_launches"] = dict(fa.launches)
+    out["tf"] = _rows_stats(torch, logits, ref["tf_logits"], out["tf_rows"],
+                            cfg.vocab_size, dev)
+    fa.reset_launches()
+    pa.reset_launches()
+    logits = lm_dp_paged_tf_rows(torch, model, pk, cfg, ctx, params,
+                                 tf_prompts, ref["paged_tf_tokens"], dev)
+    out["paged_tf_launches"] = {**fa.launches, **pa.launches}
+    out["paged_tf"] = _rows_stats(torch, logits, ref["paged_tf_logits"],
+                                  out["tf_rows"], cfg.vocab_size, dev)
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    if spec.get("swap"):
+        params = model.init_params(spec["seed"] + 1, spec["cfg_f32"], ctx,
+                                   dev)
+        out["swap"] = lm_dp_swap_run(torch, np, eng, spec["cfg_f32"], ctx,
+                                     params, spec["seed"] + 4, dev)
+        del params
+    return out
+
+
+def lm_dp_summary(np, cfg, ranks, one):
+    """lm_dp_serve's line for one model from its ranks' ``dp`` parts and
+    the one process's runs (``one``: each engine's responses, step times
+    and final integers; the swap pass's): step times and collectives,
+    integers against the one process and across the ranks, the
+    teacher-forced rows merged over the ranks' rows, launches against
+    layers x steps, and the swap pass."""
+    dps = [r["dp"] for r in ranks]
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "data_ranks": LM_DP_RANKS, "rows_by_rank": [d["rows"] for d in dps],
+           "capacity_factor": cfg.capacity_factor if cfg.is_moe else None,
+           "runs": {}}
+    for name, run0 in dps[0]["runs"].items():
+        resp_1, times_1, ints_1 = one[name]
+        # the dense engine's integers are held to the one process decoding
+        # in the ranks' row blocks (its whole-batch run is reported)
+        gate = one.get(f"{name}_blocked", ints_1)
+        steps = len(run0["steps"])
+        admissions = sum(1 for r in run0["steps"] if r["admitted"])
+        tokens = sum(len(v) for v in run0["responses"].values())
+        run = {"steps": steps, "admission_steps": admissions,
+               "generated_tokens": tokens, "dp": _tp_step_summary(
+                   run0["steps"]),
+               "dp_tokens_per_s": tokens / sum(r["s"] for r in run0["steps"]),
+               "one_process": {
+                   "step_ms_median": statistics.median(times_1) * 1e3,
+                   "tokens_per_s": tokens / sum(times_1)},
+               "integers_equal_across_ranks": replicated_equal(
+                   np, [d["runs"][name]["ints"] for d in dps]),
+               "integers_differing_from_one_process_by_rank": [
+                   int_mismatches(np, d["runs"][name]["ints"], gate,
+                                  d["rows"]) for d in dps],
+               "one_process_decodes_in_rank_blocks": gate is not ints_1,
+               "integers_differing_from_whole_batch_one_process_by_rank": [
+                   int_mismatches(np, d["runs"][name]["ints"], ints_1,
+                                  d["rows"]) for d in dps],
+               "token_agreement_vs_one_process": sum(
+                   int((run0["responses"][k] == v).sum())
+                   for k, v in resp_1.items()) / max(tokens, 1),
+               "flash_launches_by_rank": [
+                   d["runs"][name]["launches"].get("flash_attention", 0)
+                   for d in dps],
+               "flash_launches_expected": cfg.num_layers * admissions}
+        if name == "paged":
+            run["paged_launches_by_rank"] = [
+                d["runs"][name]["launches"].get("paged_attention_stats", 0)
+                for d in dps]
+            run["paged_launches_expected"] = cfg.num_layers * steps
+        out["runs"][name] = run
+    for key in ("tf", "paged_tf"):
+        if key in dps[0]:
+            out[key] = merge_rows([d[key] for d in dps])
+            out[key + "_launches_by_rank"] = [d[key + "_launches"]
+                                              for d in dps]
+    if "swap" in dps[0]:
+        sw1 = one["swap"]
+        out["f32_swap"] = {
+            "engine": LM_DP_SWAP_ENGINE, "requests": LM_DP_SWAP_REQUESTS,
+            "layers": LM_TP_F32_LAYERS, "one_process": {
+                k: sw1[k] for k in ("evictions", "restores", "steps",
+                                    "step_ms_median")},
+            "by_rank": [{k: d["swap"][k] for k in (
+                "evictions", "restores", "own_evictions", "steps",
+                "step_ms_median")} for d in dps],
+            "integers_differing_from_one_process_by_rank": [
+                int_mismatches(np, d["swap"]["ints"], sw1["ints"], d["rows"])
+                for d in dps]}
+    return out
+
+
+def lm_dp_failures(run):
+    """Why one model's lm_dp_serve run fails its gates (empty: it
+    passes)."""
+    out = []
+    for name, r in run["runs"].items():
+        if not r["integers_equal_across_ranks"]:
+            out.append(f"{name}: the ranks' integers differ")
+        bad = [b for b in r["integers_differing_from_one_process_by_rank"]
+               if b]
+        if bad:
+            out.append(f"{name}: integers differ from the one process: "
+                       f"{bad}")
+        for k in ("flash", "paged"):
+            if f"{k}_launches_expected" not in r:
+                continue
+            got, want = r[f"{k}_launches_by_rank"], r[f"{k}_launches_expected"]
+            if not want or got != [want] * len(got):
+                out.append(f"{name}: {k} launches {got} != {want}")
+    for key in ("tf", "paged_tf"):
+        why = decided_failure(run[key], LM_DECIDED_SHARE) \
+            if key in run else None
+        if why:
+            out.append(f"{key}: {why}")
+    sw = run.get("f32_swap")
+    if sw is not None:
+        if any(sw["integers_differing_from_one_process_by_rank"]):
+            out.append("f32 swap: integers differ from the one process")
+        for r in sw["by_rank"]:
+            if (r["evictions"], r["restores"]) != (
+                    sw["one_process"]["evictions"],
+                    sw["one_process"]["restores"]) or not (
+                    r["evictions"] and r["restores"]
+                    and r["own_evictions"]):
+                out.append(f"f32 swap: evictions/restores {r} against "
+                           f"{sw['one_process']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lm_tp_families: the vlm, hybrid, ssm and audio models on 2 model ranks
+# ---------------------------------------------------------------------------
+
+def lm_fam_prompts(np, cfg, b, s, seed):
+    """``b`` prompts of ``s`` tokens, or (b, s, K) codebook frames."""
+    rng = np.random.default_rng(seed)
+    shape = (b, s, cfg.num_codebooks) if cfg.num_codebooks else (b, s)
+    return rng.integers(1, cfg.vocab_size, shape).astype(np.int32)
+
+
+def lm_fam_reference(torch, np, model, moe, cfg, cfg_f32, seed, prompts,
+                     path, dev="cuda"):
+    """A family's one-process run on the card for the ranks: the params of
+    the plan at LM_TP_RANKS model ranks (for the hybrid padded, run at
+    that plan: ``transformer.plan_for`` taken to it, its padded q heads
+    masked by ``attention.q_head_mask``), the prefill and LM_FAM_TP_STEPS
+    greedy steps; the f32 pass's logits and final decode state; saved to
+    ``path``, the weights freed. Returns the bf16 run's step times."""
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.parallel.sharding import (
+        Mesh, ParallelContext, head_plan, local_context,
+    )
+
+    tp_ctx = ParallelContext(mesh=Mesh((1, LM_TP_RANKS), ("data", "model")))
+    plan = tf_mod.plan_for(cfg, tp_ctx)
+    padded = (plan.hp, plan.kv_phys) != (cfg.num_heads, cfg.num_kv_heads)
+    orig = tf_mod.plan_for
+    if padded:
+        tf_mod.plan_for = lambda c, ctx: head_plan(
+            c.num_heads, c.num_kv_heads, LM_TP_RANKS)
+    timing = {}
+    try:
+        ctx = local_context()
+        params = model.init_params(seed, cfg, tp_ctx, dev)
+        logits, fed, _ = lm_tp_tf_run(torch, model, moe, cfg, ctx, params,
+                                      prompts, None, steps=LM_FAM_TP_STEPS,
+                                      dev=dev, timing=timing)
+        del params
+        params = model.init_params(seed + 1, cfg_f32, tp_ctx, dev)
+        l32, fed32, st = lm_tp_tf_run(torch, model, moe, cfg_f32, ctx, params,
+                                      prompts, None, steps=LM_TP_F32_STEPS,
+                                      dev=dev)
+        state = {k: v.cpu() for k, v in st.layers.items()}
+        del params, st
+    finally:
+        tf_mod.plan_for = orig
+    torch.save({"logits": logits, "tokens": fed, "f32_logits": l32,
+                "f32_tokens": fed32, "f32_state": state,
+                "padded": padded}, path)
+    return timing
+
+
+def _model_block(want, got_shape, r):
+    """Model rank ``r``'s block of a whole array along every axis it holds
+    less of (kv heads, recurrent-state heads)."""
+    return want[tuple(slice(None) if w == g else slice(r * g, (r + 1) * g)
+                      for w, g in zip(want.shape, got_shape))]
+
+
+def lm_fam_rank(torch, np, model, moe, fa, mesh, fams, dev):
+    """Each family of ``fams`` on this rank of the (1, LM_TP_RANKS) mesh:
+    its blocks of the seeded params, the prefill and the decode steps fed
+    the one process's tokens (the rows' statistics, a digest of the
+    logits, flash launches, step and collective times), then the f32
+    pass against the one process (max |diff| over max |value| of the
+    logits each step and of each layer's decode-state leaves, the rank's
+    block)."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import param_blocks
+
+    out = {}
+    for name, f in fams.items():
+        cfg = f["cfg"]
+        ctx = lmesh.make_context(mesh, cfg)
+        ref = torch.load(f["ref"])
+        params = param_blocks(model.init_params(f["seed"], cfg, ctx, dev),
+                              ctx)
+        fa.reset_launches()
+        timing = {}
+        logits, _, _ = lm_tp_tf_run(torch, model, moe, cfg, ctx, params,
+                                    f["prompts"], ref["tokens"], dev=dev,
+                                    timing=timing)
+        launches = dict(fa.launches)
+        v = cfg.vocab_size
+        r = {"launches": launches, "timing": timing,
+             "tf": merge_rows([row_stats(
+                 torch, a.reshape(-1, a.shape[-1]).to(dev),
+                 b.reshape(-1, b.shape[-1]).to(dev), v)
+                 for a, b in zip(logits, ref["logits"])]),
+             "digest": _tf_digest(logits)}
+        del params
+        params = param_blocks(model.init_params(f["seed"] + 1, f["cfg_f32"],
+                                                ctx, dev), ctx)
+        fa.reset_launches()
+        l32, _, st = lm_tp_tf_run(torch, model, moe, f["cfg_f32"], ctx,
+                                  params, f["prompts"], ref["f32_tokens"],
+                                  dev=dev)
+        rank = coll.model_rank(ctx)
+        rel = [float((a[..., :v] - b[..., :v]).abs().max()
+                     / b[..., :v].abs().max())
+               for a, b in zip(l32, ref["f32_logits"])]
+        state, ints_equal = {}, True
+        for k, g in st.layers.items():
+            g = g.cpu()
+            w = _model_block(ref["f32_state"][k], g.shape, rank)
+            if g.dtype.is_floating_point:
+                state[k] = [float((g[i] - w[i]).abs().max()
+                                  / max(float(w[i].abs().max()), 1e-30))
+                            for i in range(len(w))]
+            else:
+                ints_equal &= bool(torch.equal(g, w))
+        r["f32"] = {"logits_rel_diff": rel, "state_rel_diff": state,
+                    "positions_equal": ints_equal,
+                    "launches": dict(fa.launches),
+                    "within_tolerance": ints_equal and max(
+                        rel + [x for xs in state.values() for x in xs])
+                    <= POOL_REL_TOL}
+        r["heads_per_rank"] = (params["layers"]["attn"]["wq"].shape[2],
+                               params["layers"]["attn"]["wk"].shape[2]) \
+            if "attn" in params["layers"] else None
+        del params, st
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        out[name] = r
+    return out
+
+
 def lm_tp_reference(torch, np, eng, rb, model, moe, fa, cfg, seed, path,
-                    cfg_f32, dev="cuda"):
+                    cfg_f32, dev="cuda", swap=False):
     """The one-process run on the card, for the ranks to be held against:
     the dense engine over the same requests (its responses, step times
-    and flash launches), the teacher-forced rows (greedy from its own
+    and final integers), the teacher-forced rows (greedy from its own
     logits; with MoE the decode steps' expert ids), the same two through
     the paged engine and the paged path, and the f32 pass at
-    ``cfg_f32``; saved to ``path`` on the host, the weights freed.
-    Returns (dense, paged: each its responses and step times; the
-    prefills' drops)."""
+    ``cfg_f32`` (with ``swap``, also lm_dp_serve's swap pass,
+    :func:`lm_dp_swap_run`); saved to ``path`` on the host, the weights
+    freed. Returns ({"dense", "paged": each (responses, step times,
+    integers)[, "swap"]}, the prefills' drops)."""
     from repro_torch.parallel.sharding import local_context
     from repro_torch.serving import kv_cache as pk
 
@@ -5436,8 +6031,14 @@ def lm_tp_reference(torch, np, eng, rb, model, moe, fa, cfg, seed, path,
                 eng.LMEngineConfig(**engine, kernel_backend="auto"),
                 prompts, caps, device=dev)
             runs[name] = (lm_responses(np, rb, state, caps,
-                                       engine["num_queues"]), times)
+                                       engine["num_queues"]), times,
+                          int_leaves(torch, state))
             del state
+        if swap:  # lm_dp_serve's dense engine at a data rank's shapes
+            runs["dense_blocked"] = lm_blocked_dense_run(
+                torch, eng, model, cfg, ctx, params,
+                eng.LMEngineConfig(**LM_TP_ENGINE, kernel_backend="auto"),
+                prompts, caps, dev)
         routes = [] if cfg.is_moe else None
         logits, fed, _ = lm_tp_tf_run(torch, model, moe, cfg, ctx, params,
                                       tf_prompts, None, routes=routes,
@@ -5455,10 +6056,14 @@ def lm_tp_reference(torch, np, eng, rb, model, moe, fa, cfg, seed, path,
                                    dev=dev)
     ref.update(f32_logits=logits, f32_tokens=fed,
                f32_k=st.layers["k"].cpu(), f32_v=st.layers["v"].cpu())
-    del params, st
+    del st
+    if swap:
+        runs["swap"] = lm_dp_swap_run(torch, np, eng, cfg_f32, ctx, params,
+                                      seed + 4, dev)
+    del params
     torch.save(ref, path)
     drops = moe_drops(np, moe, cfg, loads) if loads else None
-    return runs["dense"], runs["paged"], drops
+    return runs, drops
 
 
 def lm_tp_paged_summary(np, cfg, ranks, one):
@@ -5546,20 +6151,37 @@ def phase_lm_tp_serve(torch, np, eng, rb, cfg_mod, model, moe, fa, coll, smi,
     (:func:`lm_tp_rank`). Fails unless the ranks' responses and
     teacher-forced logits are equal, the teacher-forced rows pass
     lm_serve's rule, each rank's engine run launched flash
-    layers x admission steps times, and the f32 pass holds. Returns the
-    line, with each rank's flash launches."""
+    layers x admission steps times, and the f32 pass holds.
+
+    The same ranks then build a (LM_DP_RANKS, 1) mesh and run
+    lm_dp_serve (:func:`lm_dp_rank`, held to the same one-process runs),
+    and in the dense model's launch lm_tp_families (:func:`lm_fam_rank`,
+    each family's one-process run first, :func:`lm_fam_reference`). Each
+    phase prints its own line and fails on its own gates (all checked
+    before any raises). Returns (the three lines, with each rank's
+    kernel launches)."""
     import gc
 
     from repro_torch.models import transformer as tf_mod
     from repro_torch.parallel.sharding import Mesh, ParallelContext
 
     root = tempfile.mkdtemp(prefix="orca-tp-")
+    transport = ("gloo over loopback TCP; CUDA tensors staged through "
+                 "page-locked host buffers (ranks share one card)")
     out = {"phase": "lm_tp_serve", "nvidia_smi": smi, "ranks": LM_TP_RANKS,
-           "transport": "gloo over loopback TCP; CUDA tensors staged "
-                        "through page-locked host buffers (ranks share "
-                        "one card)", "engine": LM_TP_ENGINE,
+           "transport": transport, "engine": LM_TP_ENGINE,
            "requests": LM_TP_REQUESTS, "runs": {}}
-    failed = []
+    dp_out = {"phase": "lm_dp_serve", "nvidia_smi": smi,
+              "data_ranks": LM_DP_RANKS, "transport": transport,
+              "engine": LM_TP_ENGINE, "paged_engine": LM_TP_PAGED_ENGINE,
+              "requests": LM_TP_REQUESTS,
+              "admission": "every rank prefills the whole padded batch "
+                           "and keeps its slots' rows", "runs": {}}
+    fam_out = {"phase": "lm_tp_families", "nvidia_smi": smi,
+               "ranks": LM_TP_RANKS, "transport": transport,
+               "layers": LM_FAM_TP_LAYERS, "steps": LM_FAM_TP_STEPS,
+               "runs": {}}
+    failed, dp_failed, fam_failed = [], [], []
     t_phase = time.perf_counter()
     try:
         for name, arch, layers, seed in (
@@ -5586,16 +6208,29 @@ def phase_lm_tp_serve(torch, np, eng, rb, cfg_mod, model, moe, fa, coll, smi,
                 if cfg.is_moe else cfg
             path = os.path.join(root, f"{name}.pt")
             torch.backends.cuda.matmul.allow_tf32 = False
-            (resp_1, times_1), paged_1, drops = lm_tp_reference(
+            one, drops = lm_tp_reference(
                 torch, np, eng, rb, model, moe, fa, ref_cfg, seed, path,
-                ref_cfg.replace(**f32), device)
+                ref_cfg.replace(**f32), device, swap=not cfg.is_moe)
+            (resp_1, times_1, _), paged_1 = one["dense"], one["paged"][:2]
             ref_s = time.perf_counter() - t0
             gc.collect()
             if device == "cuda":
                 torch.cuda.empty_cache()
+            # lm_dp_serve: the one-process config (dropless GSPMD
+            # moe_apply), the swap pass with the dense model
             spec = {"cfg": cfg, "cfg_f32": cfg_f32, "seed": seed,
                     "ref": path, "ep_shardmap": cfg.is_moe,
-                    "device": device}
+                    "device": device, "dp_cfg": ref_cfg,
+                    "swap": not cfg.is_moe}
+            if not cfg.is_moe:
+                t1 = time.perf_counter()
+                spec["families"] = lm_fam_references(
+                    torch, np, cfg_mod, model, moe, root, device,
+                    fam_out["runs"])
+                fam_out["reference_s"] = time.perf_counter() - t1
+                gc.collect()
+                if device == "cuda":
+                    torch.cuda.empty_cache()
             t1 = time.perf_counter()
             ranks = coll.launch(lm_tp_rank, LM_TP_RANKS,
                                 backend=RANK_BACKEND, args=(spec,),
@@ -5675,14 +6310,93 @@ def phase_lm_tp_serve(torch, np, eng, rb, cfg_mod, model, moe, fa, coll, smi,
                 failed.append(f"{name}: the f32 pass is outside tolerance")
             failed += [f"{name}: paged: {why}"
                        for why in lm_tp_paged_failures(run["paged"])]
+            dp = lm_dp_summary(np, ref_cfg, ranks, one)
+            dp["seconds_by_rank"] = [r["dp"]["seconds"] for r in ranks]
+            dp_out["runs"][name] = dp
+            dp_failed += [f"{name}: {why}" for why in lm_dp_failures(dp)]
+            if "families" in spec:
+                fam_out["seconds_by_rank"] = [r["families_seconds"]
+                                              for r in ranks]
+                fam_failed += lm_fam_summary(fam_out["runs"], ranks)
             del ranks
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     emit(out)
-    if failed:
-        raise AssertionError(f"lm_tp_serve: {'; '.join(failed)}")
-    return out
+    emit(dp_out)
+    emit(fam_out)
+    why = [f"{p}: {'; '.join(f)}" for p, f in (
+        ("lm_tp_serve", failed), ("lm_dp_serve", dp_failed),
+        ("lm_tp_families", fam_failed)) if f]
+    if why:
+        raise AssertionError(" | ".join(why))
+    return out, dp_out, fam_out
+
+
+def lm_fam_references(torch, np, cfg_mod, model, moe, root, device, runs):
+    """Each LM_FAM_TP family's one-process run (:func:`lm_fam_reference`)
+    before the ranks start; returns the ranks' specs, and puts each
+    family's one-process step times and seconds in ``runs``."""
+    fams = {}
+    for i, (name, (arch, b, s)) in enumerate(LM_FAM_TP.items()):
+        t0 = time.perf_counter()
+        cfg = cfg_mod.get_config(arch).replace(
+            use_pallas_flash=True, num_layers=LM_FAM_TP_LAYERS)
+        cfg_f32 = cfg.replace(num_layers=LM_TP_F32_LAYERS, dtype="float32")
+        seed = SEED + 100 + 2 * i
+        prompts = lm_fam_prompts(np, cfg, b, s, seed + 3)
+        path = os.path.join(root, f"family_{name}.pt")
+        timing = lm_fam_reference(torch, np, model, moe, cfg, cfg_f32, seed,
+                                  prompts, path, device)
+        fams[name] = {"cfg": cfg, "cfg_f32": cfg_f32, "seed": seed,
+                      "prompts": prompts, "ref": path}
+        runs[name] = {"arch": arch, "prompts": b, "tokens": s,
+                      "one_process": {
+                          "prefill_ms": timing["prefill_s"] * 1e3,
+                          "decode_step_ms_median": statistics.median(
+                              timing["step_s"]) * 1e3},
+                      "reference_s": time.perf_counter() - t0}
+    return fams
+
+
+def lm_fam_summary(runs, ranks):
+    """lm_tp_families' per-family results from the ranks into ``runs``;
+    returns the failures: ranks that differ, teacher-forced rows that
+    fail lm_serve's rule, an f32 pass outside tolerance, or flash not
+    launched once a layer of the prefill on a family that takes it."""
+    failed = []
+    for name, run in runs.items():
+        rs = [r["families"][name] for r in ranks]
+        cfg_layers = LM_FAM_TP_LAYERS
+        run.update({
+            "heads_per_rank": rs[0]["heads_per_rank"],
+            "teacher_forced": rs[0]["tf"],
+            "tf_logits_equal_across_ranks": len(
+                {r["digest"] for r in rs}) == 1,
+            "tp": {"prefill_ms_by_rank": [
+                r["timing"]["prefill_s"] * 1e3 for r in rs],
+                "decode_step_ms_median": statistics.median(
+                    rs[0]["timing"]["step_s"]) * 1e3,
+                "collective_calls_per_step": rs[0]["timing"]["calls"],
+                "collective_bytes_per_step": rs[0]["timing"]["bytes"]},
+            "flash_launches_by_rank": [
+                r["launches"].get("flash_attention", 0) for r in rs],
+            "f32": {"layers": LM_TP_F32_LAYERS, "steps": LM_TP_F32_STEPS,
+                    "tolerance": "max|diff| <= 1e-5 x max|value| (logits "
+                                 "a step, each decode-state leaf a layer)",
+                    "by_rank": [r["f32"] for r in rs]}})
+        if not run["tf_logits_equal_across_ranks"]:
+            failed.append(f"{name}: the ranks differ")
+        why = decided_failure(run["teacher_forced"], LM_DECIDED_SHARE)
+        if why:
+            failed.append(f"{name}: {why}")
+        if not all(r["f32"]["within_tolerance"] for r in rs):
+            failed.append(f"{name}: the f32 pass is outside tolerance")
+        want = 0 if name == "ssm" else cfg_layers
+        if run["flash_launches_by_rank"] != [want] * len(rs):
+            failed.append(f"{name}: flash launches "
+                          f"{run['flash_launches_by_rank']} != {want}")
+    return failed
 
 
 def main() -> int:
@@ -5837,8 +6551,8 @@ def main() -> int:
     # tensor-parallel LM serving: 2 model ranks on the card
     gc.collect()
     torch.cuda.empty_cache()
-    tp = phase_lm_tp_serve(torch, np, eng, rb, lm_configs, model, moe, fa,
-                           coll, smi)
+    tp, dp, fam = phase_lm_tp_serve(torch, np, eng, rb, lm_configs, model,
+                                    moe, fa, coll, smi)
     for name, e in lm_entries.items():
         e["launches"] = (launches[name] + crash["launches"][name]
                          + moe_launches[name] + vlm_launches[name]
@@ -5866,6 +6580,26 @@ def main() -> int:
         n = sum(run["paged"]["paged_launches_by_rank"])
         paged[f"tp_{name}_shape"]["launches"] = n
         paged["launches"] += n
+    # each data rank's engines walk its half of the slots at every head
+    # (the dense model: row 9e; the MoE model at its 4 kv heads of 8) and
+    # prefill the whole admission batch at every head
+    for name, shape in (("dense", None), ("moe", "moe_shape")):
+        runs = dp["runs"][name]["runs"]
+        n = sum(sum(r["flash_launches_by_rank"]) for r in runs.values())
+        flash["launches"] += n
+        if shape:
+            flash[shape]["launches"] += n
+        n = sum(runs["paged"]["paged_launches_by_rank"])
+        paged["launches"] += n
+        if shape:
+            paged[shape]["launches"] += n
+        else:
+            paged["dp_dense_shape"]["launches"] = n
+    # a tensor-parallel rank's heads of the vlm, hybrid and audio prefills
+    for name in ("vlm", "hybrid", "audio"):
+        n = sum(fam["runs"][name]["flash_launches_by_rank"])
+        flash[f"tp_{name}_shape"]["launches"] = n
+        flash["launches"] += n
     entries.update(lm_entries)
 
     dead = [k for k, e in entries.items()

@@ -8,12 +8,16 @@ phases named, in the order given, each printing its JSON line.
     python3 scripts/chip_phases.py lm_tp_serve
     python3 scripts/chip_phases.py zero1_train tp_train
     python3 scripts/chip_phases.py dp_moe_train lm_tp_serve
+    python3 scripts/chip_phases.py lm_dp_serve lm_tp_families
 
 Phases: ``tx_spmd``, ``zero1_train``, ``dp_moe_train``, ``tp_train``,
-``tx_crash``, ``lm_crash``, ``lm_tp_serve``. ``tp_train`` holds its
-ranks against zero1_train's single-process steps, and ``dp_moe_train``
-(the data-parallel MoE check) runs in zero1_train's launch: named
-without zero1_train, either runs it first (its line is printed once).
+``tx_crash``, ``lm_crash``, ``lm_tp_serve``, ``lm_dp_serve``,
+``lm_tp_families``. ``tp_train`` holds its ranks against zero1_train's
+single-process steps, and ``dp_moe_train`` (the data-parallel MoE check)
+runs in zero1_train's launch: named without zero1_train, either runs it
+first (its line is printed once). ``lm_dp_serve`` and
+``lm_tp_families`` run in lm_tp_serve's launches: any of the three runs
+all three, once.
 The checks are the script's own; the kernels line and the last line are
 not printed (a phase's launches are in its own line). GPU only.
 """
@@ -31,7 +35,8 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 import chip_smoke as cs  # noqa: E402
 
 PHASES = ("tx_spmd", "zero1_train", "dp_moe_train", "tp_train", "tx_crash",
-          "lm_crash", "lm_tp_serve")
+          "lm_crash", "lm_tp_serve", "lm_dp_serve", "lm_tp_families")
+SERVE_RANKS = ("lm_tp_serve", "lm_dp_serve", "lm_tp_families")
 
 
 def main(names) -> int:
@@ -49,6 +54,7 @@ def main(names) -> int:
     smi = cs.phase_device(torch, _build)
     t0 = time.perf_counter()
     zero1 = {}  # zero1_train's single-process run, kept for tp_train
+    served = False
     try:
         for name in names:
             gc.collect()
@@ -58,7 +64,11 @@ def main(names) -> int:
                 run("zero1_train", smi, zero1)
                 gc.collect()
                 torch.cuda.empty_cache()
-            if name not in ("dp_moe_train", "zero1_train"):
+            if name in SERVE_RANKS:
+                if not served:
+                    run("lm_tp_serve", smi, zero1)
+                served = True
+            elif name not in ("dp_moe_train", "zero1_train"):
                 run(name, smi, zero1)
     finally:
         if "root" in zero1:

@@ -399,13 +399,10 @@ def lm_expected_pages_per_request(cfg: LMEngineConfig) -> int:
 def lm_paged_kv_config(cfg: LMEngineConfig, model_cfg, ctx):
     """PagedKVConfig for this engine + model (the pool auto-sized to the
     dense-equivalent worst case when ``cfg.num_pages`` is 0); under
-    tensor parallelism this rank's pool, its kv heads. The host cold
-    tier (``host_pages > 0``) under a mesh is not ported."""
+    tensor parallelism this rank's pool, its kv heads. Over data ranks
+    every rank's pool has every page (the allocator is one), and holds
+    the data of its slots' pages only."""
     from repro_torch.models.model import make_paged_kv_config
-
-    if cfg.host_pages and ctx.mesh is not None and ctx.mesh.size > 1:
-        raise NotImplementedError(
-            "the swap service (host_pages > 0) under a mesh is not ported")
 
     mppr = lm_max_pages_per_request(cfg)
     num_pages = cfg.num_pages or cfg.slots * mppr
@@ -493,6 +490,53 @@ def _argmax(logits):
     return torch.argmax(logits, dim=-1).to(I32)
 
 
+# The engine over data ranks. Every rank holds the integer state whole
+# (rings, scheduler, slots, positions, responses; the page pool's
+# allocator) and takes every decision; the decode state is split by
+# slot rows as ``model.decode_state_specs`` splits it (``model.
+# batch_rows``: a block a rank when the data axes divide the slots, else
+# replicated). A decode step runs on the rank's rows and the ranks'
+# greedy tokens are gathered, so every rank records the whole batch. An
+# admission prefill runs the whole padded batch on every rank
+# (``model.whole_batch``: an MoE block's capacity and dispatch are the
+# whole batch's, as GSPMD's, with no collective), and each rank keeps
+# the rows that land in its slots.
+
+def _greedy(logits, rows: slice, batch: int, ctx):
+    """The whole batch's greedy tokens from this rank's ``rows`` of the
+    logits: gathered over the data axes when they split the batch."""
+    from repro_torch.parallel import collectives as coll
+
+    nxt = _argmax(logits)
+    return nxt if rows == slice(0, batch) else coll.data_gather(nxt, ctx)
+
+
+def _local_slots(slot_tgt, rows: slice):
+    """Global target slots as indices into a rank's ``rows`` (``N_loc``,
+    dropped, for a slot another rank holds or none)."""
+    n = rows.stop - rows.start
+    t = slot_tgt - rows.start
+    return torch.where((t >= 0) & (t < n), t, n)
+
+
+def admission_blocks(n_rows: int, model_cfg, ctx) -> list:
+    """The row blocks an admission prefill of ``n_rows`` runs in, each
+    on the whole-batch context: one, unless the EP shard_map dispatch
+    runs over data ranks, where JAX's ``shard_map`` gives each data rank
+    its block of the padded batch (its send buffers sized from it), so
+    every rank prefills the ``dp`` blocks one by one."""
+    from repro_torch.parallel import collectives as coll
+
+    if not (model_cfg.is_moe and ctx.ep_shardmap
+            and coll.data_parallel(ctx)):
+        return [slice(0, n_rows)]
+    if n_rows % ctx.dp:
+        raise ValueError(f"the EP shard_map dispatch splits {n_rows} "
+                         f"admitted rows over {ctx.dp} data ranks")
+    n = n_rows // ctx.dp
+    return [slice(i * n, (i + 1) * n) for i in range(ctx.dp)]
+
+
 def _record(state, cfg, eligible, nxt):
     """Write ``nxt`` at each eligible slot's next output position."""
     write_pos = torch.clamp(state.slot_done, 0, cfg.gen_len - 1).long()
@@ -572,23 +616,27 @@ def _set_slots(g, slot_tgt, a):
 def _lm_step_dense(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
                    params, prefill_fn, decode_fn):
     """Continuous-batching order: decode -> complete -> admit; a finished
-    slot's replacement is admitted in the same step."""
-    from repro_torch.models.model import DecodeState
+    slot's replacement is admitted in the same step. Over data ranks
+    ``decode_fn`` takes and returns this rank's rows (``model.
+    batch_rows``) and ``prefill_fn`` the whole padded admission batch."""
+    from repro_torch.models.model import DecodeState, batch_rows
 
     nslots = cfg.slots
+    rows = batch_rows(nslots, ctx)
     active = state.slot_active
     eligible = active & ~_lm_terminal(cfg, state.slot_done, state.slot_cap,
                                       state.slot_last)
     dec = state.decode
-    dec2, logits = decode_fn(params, state.slot_last, dec)
-    nxt = _argmax(logits)
+    dec2, logits = decode_fn(params, state.slot_last[rows], dec)
+    nxt = _greedy(logits, rows, nslots, ctx)
     slot_out, slot_done, slot_last = _record(state, cfg, eligible, nxt)
     # slots that did not decode keep their state
+    mine = eligible[rows]
     dec_post = DecodeState(
-        {k: torch.where(eligible.reshape((1, -1) + (1,) * (v.dim() - 2)),
+        {k: torch.where(mine.reshape((1, -1) + (1,) * (v.dim() - 2)),
                         v, dec.layers[k])
          for k, v in dec2.layers.items()},
-        torch.where(eligible, dec2.pos, dec.pos),
+        torch.where(mine, dec2.pos, dec.pos),
     )
 
     finished = active & _lm_terminal(cfg, slot_done, state.slot_cap,
@@ -613,9 +661,10 @@ def _lm_step_dense(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
     if bool(admit_ok.any()):
         adm_state, adm_logits = prefill_fn(params, prompts.to(I32))
         adm_next = _argmax(adm_logits)
-        new_layers = {k: _set_slots(v, slot_tgt, adm_state.layers[k])
+        tgt = _local_slots(slot_tgt, rows)
+        new_layers = {k: _set_slots(v, tgt, adm_state.layers[k])
                       for k, v in dec_post.layers.items()}
-        new_pos = set_drop(dec_post.pos, (slot_tgt.long(),), adm_state.pos)
+        new_pos = set_drop(dec_post.pos, (tgt.long(),), adm_state.pos)
     slot_active, slot_queue, slot_done, slot_last, slot_cap, slot_out = _seat(
         cfg, slot_tgt, admit_ok, srcq, caps, adm_next, slot_active,
         slot_queue, slot_done, slot_last, slot_cap, slot_out)
@@ -637,11 +686,16 @@ def _lm_step_paged(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
     is back-pressured by page credit and lands prompt kv straight into
     pages. Slots whose page allocation found the pool dry are flagged in
     ``slot_stalled`` for the swap service (:func:`make_swap_service`). The
-    page pool is updated in place."""
-    from repro_torch.models.model import paged_decode_step, prefill_kv
+    page pool is updated in place. Over data ranks every rank takes every
+    slot's allocation, decodes its rows and writes its slots' pages
+    (``model.paged_decode_step``)."""
+    from repro_torch.models.model import (
+        batch_rows, paged_decode_step, prefill_kv, whole_batch,
+    )
     from repro_torch.serving import kv_cache as pk
 
     nslots = cfg.slots
+    rows = batch_rows(nslots, ctx)
     pcfg = lm_paged_kv_config(cfg, model_cfg, ctx)
     kv = state.decode
     mppr = pcfg.max_pages_per_seq
@@ -653,7 +707,7 @@ def _lm_step_paged(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
     kv, logits, ok = paged_decode_step(
         params, state.slot_last, kv, pcfg, model_cfg, ctx, active=eligible,
         kernel_backend=cfg.kernel_backend)
-    nxt = _argmax(logits)
+    nxt = _greedy(logits, rows, nslots, ctx)
     advance = eligible & ok  # ok False = pool dry: the slot stalls
     stalled = eligible & ~ok
     slot_out, slot_done, slot_last = _record(state, cfg, advance, nxt)
@@ -697,26 +751,35 @@ def _lm_step_paged(state: LMEngineState, cfg: LMEngineConfig, model_cfg, ctx,
     # admitted assignment keeps JAX's slot and keep. The EP shard_map
     # dispatch is not prefix-exact (it splits the tokens into one block a
     # model rank and sizes each send buffer from its block), so under it
-    # the whole padded batch is prefilled, as JAX does.
+    # the whole padded batch is prefilled, as JAX does. Over data ranks
+    # every rank prefills them all (``whole_batch``; the EP dispatch in
+    # JAX's data blocks, :func:`admission_blocks`) and writes the pages of
+    # its slots.
     n_adm = int(admit_ok.sum())
     adm_next = torch.zeros_like(slot_ids)
     if n_adm:
         whole = model_cfg.is_moe and ctx.ep_shardmap and ctx.mesh is not None
-        rows = prompts.to(I32) if whole else prompts[:n_adm].to(I32)
+        batch = prompts.to(I32) if whole else prompts[:n_adm].to(I32)
         if prefill_fn is None:
-            adm_k, adm_v, adm_logits = prefill_kv(
-                params, rows, model_cfg, ctx,
+            parts = [prefill_kv(
+                params, batch[b], model_cfg, whole_batch(ctx),
                 kernel_backend=cfg.kernel_backend,
                 capacity_tokens=cfg.admit_per_step * cfg.prompt_len)
-            adm_k, adm_v = adm_k[:, :n_adm], adm_v[:, :n_adm]
-            adm_logits = adm_logits[:n_adm]
+                for b in admission_blocks(batch.shape[0], model_cfg, ctx)]
+            adm_k = torch.cat([p[0] for p in parts], 1)[:, :n_adm]
+            adm_v = torch.cat([p[1] for p in parts], 1)[:, :n_adm]
+            adm_logits = torch.cat([p[2] for p in parts])[:n_adm]
+            del parts
         else:
             adm_k, adm_v, adm_logits = prefill_fn(params,
                                                   prompts[:n_adm].to(I32))
         adm_next[:n_adm] = _argmax(adm_logits)
+        own = (slot_ids[:n_adm] >= rows.start) & (slot_ids[:n_adm]
+                                                  < rows.stop)
         # the returned mask folds in the pool's all-or-nothing check
         kv, landed = pk.prefill_into_pages(
-            kv, pcfg, slot_ids[:n_adm], adm_k, adm_v, admit_ok[:n_adm])
+            kv, pcfg, slot_ids[:n_adm], adm_k, adm_v, admit_ok[:n_adm],
+            own=own)
         admit_ok = torch.cat([landed, admit_ok[n_adm:]])
     slot_tgt = torch.where(admit_ok, slot_ids, nslots)
     slot_active, slot_queue, slot_done, slot_last, slot_cap, slot_out = _seat(
@@ -753,16 +816,29 @@ def make_swap_service(cfg: LMEngineConfig, model_cfg, ctx, *, budget=None,
     ``budget`` (a ``placement.MemoryBudget``) charges parked pages to the
     ledger the durability tier also reads, so eviction also needs budget
     headroom. Pass ``cold`` to reuse a tier (crash recovery restores into
-    it)."""
+    it).
+
+    Under a mesh every rank runs the service on its replica of the
+    engine's integers and takes the same decisions. Its tier holds its
+    block of what it parks: its kv heads (its pool's), and over data
+    ranks its slots' pages only (``HostColdTier(slots=)``; the host
+    allocator runs for every slot). The budget charges the bytes the
+    rank parks, so with a budget an eviction waits until every rank has
+    the headroom (one sum over the mesh)."""
     from repro_torch.models.layers import dtype_of
+    from repro_torch.models.model import batch_rows
     from repro_torch.serving import kv_cache as pk
 
     if cfg.host_pages <= 0:
         raise ValueError("make_swap_service needs cfg.host_pages > 0")
     pcfg = lm_paged_kv_config(cfg, model_cfg, ctx)
+    rows = batch_rows(cfg.slots, ctx)
     if cold is None:
+        mine = None if rows == slice(0, cfg.slots) \
+            else range(rows.start, rows.stop)
         cold = pk.HostColdTier(pcfg, cfg.host_pages,
-                               dtype=dtype_of(model_cfg.dtype), budget=budget)
+                               dtype=dtype_of(model_cfg.dtype), budget=budget,
+                               slots=mine)
     mppr = pcfg.max_pages_per_seq
     ps = pcfg.page_size
 
@@ -786,8 +862,10 @@ def make_swap_service(cfg: LMEngineConfig, model_cfg, ctx, *, budget=None,
             npg = -(-int(lengths[slot]) // ps)
             if free_top < max(npg, mppr):
                 break
-            k, v = cold.load(slot)
-            kvs, ok = pk.swap_in(kvs, pcfg, slot, k.to(dev), v.to(dev))
+            k = v = None
+            if cold.parks(slot):
+                k, v = (t.to(dev) for t in cold.load(slot))
+            kvs, ok = pk.swap_in(kvs, pcfg, slot, k, v)
             if not bool(ok):
                 break
             cold.drop(slot, restored=True)
@@ -801,10 +879,23 @@ def make_swap_service(cfg: LMEngineConfig, model_cfg, ctx, *, budget=None,
                 order = np.argsort(done, kind="stable")
                 victim = next((int(s) for s in order if cand[s]), None)
                 npg = 0 if victim is None else -(-int(lengths[victim]) // ps)
-                if victim is not None and cold.can_accept(victim, npg):
+                if victim is not None and _every_rank(
+                        cold.can_accept(victim, npg), cold, ctx, dev):
                     kvs, k, v, ok = pk.swap_out(kvs, pcfg, victim)
                     if bool(ok):
                         cold.store(victim, k, v, npg)
         return state._replace(decode=kvs)
 
     return service, cold, pcfg
+
+
+def _every_rank(ok: bool, cold, ctx, dev) -> bool:
+    """``ok`` on every rank of ``ctx``'s mesh: the ranks' budgets differ
+    (each charges what it parks), so a budgeted tier's acceptance is
+    agreed by one sum; without a budget it is the same on every rank."""
+    from repro_torch.parallel import collectives as coll
+
+    if cold.budget is None or ctx.mesh is None or ctx.mesh.size == 1:
+        return ok
+    refused = torch.tensor([0 if ok else 1], dtype=I32, device=dev)
+    return int(coll.psum(refused, ctx.mesh, tuple(ctx.mesh.axis_names))) == 0

@@ -40,9 +40,10 @@ from repro_torch.fault import (
     NackError, StragglerDetector, recover, request_with_retries,
 )
 from repro_torch.models import (
-    decode_step, init_params, make_decode_state, prefill,
+    DecodeState, decode_step, init_params, make_decode_state, prefill,
 )
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.model import rows_context, whole_batch
 from repro_torch.parallel.sharding import local_context
 
 
@@ -51,32 +52,43 @@ def engine_step(cfg, ctx, ecfg: eng.LMEngineConfig, params, device="cuda"):
     updates the page pool in place, so a state passed to ``step`` must not
     be used again.
 
-    Under a tensor-parallel context (a running mesh whose model axis
-    splits the model; ``params`` this rank's blocks) either step runs on
-    every rank: each holds a replica of the engine state (rings, slots,
-    positions; the paged step's page table, free list and lengths) and
-    its kv heads of the decode state or the page pool, and the logits it
-    reads are whole, so every rank takes the same decisions and emits the
-    same responses. Data-parallel serving (the slots' rows split over
-    data ranks) and the paged swap service under a mesh are not
-    ported."""
-    if ctx.mesh is not None and ctx.dp > 1:
-        raise NotImplementedError("the LM engine under a mesh runs on the "
-                                  "model axis only (data axes of size 1)")
+    Under a mesh (``params`` this rank's blocks) either step runs on
+    every rank: each holds a replica of the engine's integers (rings,
+    slots, positions; the paged step's page table, free list and
+    lengths) and takes every decision, and its block of the decode state
+    or the page pool: its kv heads under tensor parallelism, and over
+    data ranks its rows of the slots (``models.model.batch_rows``; the
+    paged pool's pages of its slots). A decode step runs on the rank's
+    rows and gathers the greedy tokens over the data axes; an admission
+    prefill runs the whole padded batch on every rank
+    (``models.model.whole_batch``), which keeps its slots' rows. The
+    logits a rank reads are whole, so every rank emits the same
+    responses."""
     if ecfg.paged:
         def step(s):
             return eng.lm_engine_step(s, ecfg, cfg, ctx, params)
 
         return step
+    pctx = whole_batch(ctx)
+    dctx = rows_context(ecfg.slots, ctx)
 
     def prefill_fn(p, prompts):
-        st = make_decode_state(cfg, ctx, ecfg.admit_per_step, ecfg.cache_len,
-                               device)
-        return prefill(p, prompts, st, cfg, ctx, chunk=16,
-                       backend=ecfg.kernel_backend)
+        parts = []
+        for b in eng.admission_blocks(prompts.shape[0], cfg, ctx):
+            st = make_decode_state(cfg, pctx, b.stop - b.start,
+                                   ecfg.cache_len, device)
+            parts.append(prefill(p, prompts[b], st, cfg, pctx, chunk=16,
+                                 backend=ecfg.kernel_backend))
+        if len(parts) == 1:
+            return parts[0]
+        states, logits = zip(*parts)
+        return DecodeState(
+            {k: torch.cat([st.layers[k] for st in states], 1)
+             for k in states[0].layers},
+            torch.cat([st.pos for st in states])), torch.cat(logits)
 
     def decode_fn(p, toks, st):
-        return decode_step(p, toks, st, cfg, ctx)
+        return decode_step(p, toks, st, cfg, dctx)
 
     def step(s):
         return eng.lm_engine_step(s, ecfg, cfg, ctx, params, prefill_fn,

@@ -205,19 +205,33 @@ def embed_init(gen, cfg: ModelConfig, device):
 def embed_apply(params, tokens, cfg: ModelConfig, ctx=None):
     """tokens: (B, S) int32 or (B, S, K) for codebook archs -> (B, S, D).
     Vocab-parallel under tensor parallelism: ``params["tok"]`` holds this
-    rank's rows of the table; ids outside them give zero rows, and the
+    rank's rows of the table ((K, V / tp, D) for codebooks: each
+    codebook's vocab split); ids outside them give zero rows, and the
     sum over the model axis leaves each token its own row."""
     tok = params["tok"]
     if cfg.num_codebooks:
-        return sum(tok[k][tokens[..., k].long()]
-                   for k in range(cfg.num_codebooks))
+        if not coll.tensor_parallel(ctx):
+            return sum(tok[k][tokens[..., k].long()]
+                       for k in range(cfg.num_codebooks))
+        # each codebook's rows summed over the model axis (one call: every
+        # id is inside one rank's block, so the sum adds zeros), then the
+        # codebooks added in order, as on one device
+        rows = coll.model_psum(torch.stack([
+            _vocab_rows(tok[k], tokens[..., k], ctx)
+            for k in range(cfg.num_codebooks)]), ctx)
+        return sum(rows[k] for k in range(cfg.num_codebooks))
     if not coll.tensor_parallel(ctx):
         return tok[tokens.long()]
+    return coll.model_psum(_vocab_rows(tok, tokens, ctx), ctx)
+
+
+def _vocab_rows(tok, tokens, ctx):
+    """The rows of ``tokens`` in this rank's block of a vocab-split table
+    (V / tp, D), zero for ids outside it."""
     v_loc = tok.shape[0]
     ids = tokens.long() - coll.model_rank(ctx) * v_loc
     inside = (ids >= 0) & (ids < v_loc)
-    rows = torch.where(inside[..., None], tok[ids.clamp(0, v_loc - 1)], 0)
-    return coll.model_psum(rows, ctx)
+    return torch.where(inside[..., None], tok[ids.clamp(0, v_loc - 1)], 0)
 
 
 def lm_head_init(gen, cfg: ModelConfig, device):

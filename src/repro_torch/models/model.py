@@ -11,18 +11,20 @@ as JAX's GSPMD step is per device: ``params`` are this rank's blocks
 (``sharding.param_blocks``), tokens and states its rows of the batch
 (split over the data axes when they divide it, ``batch_specs``), and the
 decode state holds its kv heads (:func:`decode_state_specs`). Megatron
-tensor parallelism over the model axis runs the dense and MoE families'
-forward, prefill and ring-cache decode: the embedding and the head are
-vocab-parallel, and the logits returned are whole (the vocab shards
-gathered), so a greedy token is the whole row's argmax and its ties go
-to the lowest global index, as on one device. :func:`loss_fn` takes a
-vocab-parallel log-sum-exp and gold logit, and its gradient comes back
-through the model-axis forms' backward (``parallel.collectives``);
-:func:`postprocess_grads` ties the kv replicas across the model ranks.
-The paged path runs on the model axis: each rank's pool holds its kv
-heads (:func:`make_paged_kv_config`), and its decode and admission
-attend its heads; a pool whose slots split over data ranks is not
-ported (``prefill_kv`` alone runs on a rank's rows)."""
+tensor parallelism over the model axis runs every family's forward,
+prefill and ring-cache decode (training: the dense and MoE families;
+the others' forward under no gradient is the serving stack): the
+embedding and the head are vocab-parallel, and the logits returned are
+whole (the vocab shards gathered), so a greedy token is the whole row's
+argmax and its ties go to the lowest global index, as on one device.
+:func:`loss_fn` takes a vocab-parallel log-sum-exp and gold logit, and
+its gradient comes back through the model-axis forms' backward
+(``parallel.collectives``); :func:`postprocess_grads` ties the kv
+replicas across the model ranks. The paged path runs on both axes: each
+rank's pool holds its kv heads (:func:`make_paged_kv_config`); over data
+ranks the allocator, page table and lengths are the whole batch's on
+every rank, and each rank decodes its rows (:func:`batch_rows`), walking
+and writing only its slots' pages (:func:`paged_decode_step`)."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
@@ -134,11 +136,21 @@ def forward(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
 
 
 def _forward_local(params, tokens, cfg, ctx, media, chunk):
-    """:func:`forward` with this rank's vocab columns of the logits."""
+    """:func:`forward` with this rank's vocab columns of the logits. A
+    family that trains on one device only (``tf.check_tp_train``) runs
+    its tensor-parallel forward under no gradient through the serving
+    stack (the same blocks, stateless)."""
     plan = tf.plan_for(cfg, ctx)
     h = shard(_embed(params, tokens, cfg, media, ctx), ctx)
-    h, aux = tf.stack_train(params["layers"], h, cfg, plan, ctx,
-                            _positions_for(cfg, tokens), chunk=chunk)
+    positions = _positions_for(cfg, tokens)
+    if coll.tensor_parallel(ctx) and cfg.family not in tf.TP_TRAIN_FAMILIES \
+            and not torch.is_grad_enabled():
+        h, _ = tf.stack_apply(params["layers"], h, cfg, plan, ctx, positions,
+                              chunk=chunk)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    else:
+        h, aux = tf.stack_train(params["layers"], h, cfg, plan, ctx,
+                                positions, chunk=chunk)
     return _head_local(params, h, cfg, ctx), aux
 
 
@@ -194,7 +206,8 @@ def make_decode_state(cfg: ModelConfig, ctx: ParallelContext, batch: int,
                       cache_len: int, device="cuda") -> DecodeState:
     """Zero decode state for a global ``batch``. Under a mesh it is this
     rank's block (:func:`decode_state_specs`): its rows when the data
-    axes divide the batch, and its kv heads under tensor
+    axes divide the batch (:func:`batch_rows`), and its kv heads (and
+    recurrent state heads, where the spec splits them) under tensor
     parallelism."""
     tf.check_tp(cfg, ctx)
     plan = tf.plan_for(cfg, ctx)
@@ -246,15 +259,8 @@ def decode_step(params, tokens, state: DecodeState, cfg: ModelConfig,
 def check_paged_support(cfg: ModelConfig, ctx=None) -> None:
     """The paged path stores pages in bshd layout and walks full causal
     context; families with recurrent state, and windowed or dot-layout
-    caches, keep the dense decode path. Under a mesh the pool runs on the
-    model axis (each rank its kv heads); a data axis of more than one
-    rank would split the pool's slots over ranks, the data-parallel
-    engine, which is not ported."""
+    caches, keep the dense decode path."""
     tf.check_family(cfg)
-    if ctx is not None and coll.data_parallel(ctx):
-        raise NotImplementedError(
-            "the paged pool over data ranks (the data-parallel LM engine) "
-            "is not ported: the paged path runs on the model axis only")
     if cfg.attn_free or cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"paged decode needs a pure-attention family, got {cfg.family}")
@@ -295,32 +301,40 @@ def paged_decode_step(params, tokens, kv, pcfg, cfg: ModelConfig,
     ``paged_attention_stats`` walk per ``kernel_backend``) and LSE-merges
     the current token's fresh k/v; after the last layer ONE
     ``append_token_batch`` commits every layer's new kv, in place. Returns
-    (kv', logits (B, V), ok (B,)): ok False where the pool was dry (the
+    (kv', logits (b, V), ok (B,)): ok False where the pool was dry (the
     slot stalls: nothing appended). Under tensor parallelism ``kv`` is
     this rank's pool (its kv heads), the walk attends its q heads, and
     the logits are whole, so every rank takes the same pool decisions.
-    """
+
+    Over data ranks ``tokens``, ``active`` and the pool's allocator, page
+    table, lengths and residency are the whole batch's on every rank, so
+    every rank takes every slot's allocation; the rank decodes only its
+    rows (:func:`batch_rows`: b = B / dp when the data axes divide B,
+    else all B, every rank the same): it walks and writes only its
+    slots' pages, and returns its rows' logits."""
     from repro_torch.serving import kv_cache as pk
 
     check_paged_support(cfg, ctx)
     plan = tf.plan_for(cfg, ctx)
     b = tokens.shape[0]
+    rows = batch_rows(b, ctx)
+    rctx = rows_context(b, ctx)
     if active is None:
         active = torch.ones((b,), dtype=torch.bool, device=tokens.device)
     active = active & (kv.residency == pk.HOT)
     kv, ok = pk.ensure_capacity_batch(kv, pcfg, active)
     eff = active & ok
-    cur = kv.lengths  # stale length = position of the new token
-    aux = tf.PagedAux(page_table=kv.page_table, lengths=cur,
+    cur = kv.lengths[rows]  # stale length = position of the new token
+    aux = tf.PagedAux(page_table=kv.page_table[rows], lengths=cur,
                       backend=kernel_backend)
-    h = _step_input(params, tokens, cfg, ctx)
+    h = _step_input(params, tokens[rows], cfg, rctx)
     h, new_states = tf.stack_apply(
-        params["layers"], h, cfg, plan, ctx,
+        params["layers"], h, cfg, plan, rctx,
         tf.token_positions(cfg, cur.to(I32)),
         states={"kp": kv.k_pages, "vp": kv.v_pages}, paged=aux)
-    logits = _head(params, h, cfg, ctx)
+    logits = _head(params, h, cfg, rctx)
     kv = pk.append_token_batch(kv, pcfg, new_states["k_new"],
-                               new_states["v_new"], eff)
+                               new_states["v_new"], eff, rows=rows)
     return kv, logits[:, 0], ok
 
 
@@ -334,7 +348,8 @@ def prefill_kv(params, tokens, cfg: ModelConfig, ctx: ParallelContext, *,
     ``capacity_tokens`` sizes the MoE capacity from that token count in
     place of B x S (the engine passes its padded admission batch's; over
     data ranks, the global batch's). Under a mesh ``tokens`` are this
-    rank's rows and k/v hold its kv heads."""
+    rank's rows and k/v hold its kv heads (the engine over data ranks
+    passes every rank the whole batch under :func:`whole_batch`)."""
     check_paged_support(cfg)
     plan = tf.plan_for(cfg, ctx)
     h = shard(embed_apply(params["embed"], tokens, cfg, ctx), ctx)
@@ -357,6 +372,36 @@ def _batch_axis_or_none(cfg_batch: int, ctx: ParallelContext):
         return None
     axes = ctx.batch_axes
     return axes[0] if len(axes) == 1 else axes
+
+
+def batch_rows(batch: int, ctx: ParallelContext) -> slice:
+    """This rank's rows of a global batch of ``batch`` rows: its block
+    (in ``collectives.data_rank`` order) when the data axes split the
+    batch (:func:`decode_state_specs`), else all of them (replicated
+    over the data ranks, as ``_batch_axis_or_none`` leaves a batch they
+    do not divide)."""
+    if not coll.data_parallel(ctx) or _batch_axis_or_none(batch, ctx) is None:
+        return slice(0, batch)
+    n = batch // ctx.dp
+    r = coll.data_rank(ctx)
+    return slice(r * n, (r + 1) * n)
+
+
+def whole_batch(ctx: ParallelContext) -> ParallelContext:
+    """The context of work every data rank does on the whole batch: the
+    model axis kept, no batch axes (so an MoE block's capacity and
+    dispatch are the whole batch's, with no collective over the data
+    axes)."""
+    if not coll.data_parallel(ctx):
+        return ctx
+    return ctx._replace(data_axes=(), pod_axis=None)
+
+
+def rows_context(batch: int, ctx: ParallelContext) -> ParallelContext:
+    """The context of a rank's :func:`batch_rows`: ``ctx`` when the data
+    axes split the batch, else :func:`whole_batch`."""
+    return ctx if batch_rows(batch, ctx) != slice(0, batch) \
+        else whole_batch(ctx)
 
 
 def decode_state_specs(cfg: ModelConfig, ctx: ParallelContext, batch: int):

@@ -29,6 +29,7 @@ from repro_torch.models.attention import _proj
 from repro_torch.models.layers import (
     dense_init, dtype_of, matmul, normal, rmsnorm, rmsnorm_init,
 )
+from repro_torch.parallel import collectives as coll
 
 F32 = torch.float32
 # elements of one block's (B, n, T, T, H, dk) exponent tensor: the
@@ -154,10 +155,21 @@ def rwkv_tmix_init(gen, cfg: ModelConfig, device):
 
 
 def rwkv_tmix_apply(p, x, cfg: ModelConfig, *, prev=None, state=None,
-                    chunk: int = 32):
-    """x: (B, S, D). Returns (y, (last x, new state))."""
+                    chunk: int = 32, ctx=None):
+    """x: (B, S, D). Returns (y, (last x, new state)).
+
+    Under tensor parallelism ``p`` holds the rank's heads of the (D, H,
+    hd) projections and of ``w_out`` (H, hd, D); the per-head vectors
+    ``w0``, ``u``, ``gn`` and the decay LoRA's ``wlB`` are replicated
+    (2-D: the head rule does not match them) and the rank takes its
+    heads' slice of them. The recurrence and the group norm are per
+    head, so rank-local; ``state`` holds the rank's heads, and the
+    row-split ``w_out`` partials are summed over the model axis before
+    the cast."""
     B, S, D = x.shape
     h, hd = _heads(cfg)
+    hl = p["wr"].shape[1]  # this rank's heads
+    heads = slice(coll.model_rank(ctx) * hl, (coll.model_rank(ctx) + 1) * hl)
     xx = _shift(x, prev)
 
     def lerp(mu):
@@ -165,21 +177,24 @@ def rwkv_tmix_apply(p, x, cfg: ModelConfig, *, prev=None, state=None,
 
     r, k, v, g = (_proj(lerp(p[f"mu_{c}"]), p[f"w{c}"]) for c in "rkvg")
     xw = lerp(p["mu_w"])
-    lo = torch.tanh(xw.float() @ p["wlA"].float()) @ p["wlB"].float()
-    ww = p["w0"].float()[None, None] + lo.reshape(B, S, h, hd)
+    wlb = p["wlB"][:, heads.start * hd:heads.stop * hd] if hl != h \
+        else p["wlB"]
+    lo = torch.tanh(xw.float() @ p["wlA"].float()) @ wlb.float()
+    ww = p["w0"][heads].float()[None, None] + lo.reshape(B, S, hl, hd)
     logw = -torch.exp(torch.clamp(ww, -20.0, 3.0))  # decay in (0, 1)
 
-    y, new_state = chunked_gla(r, k, v, logw, p["u"], chunk=chunk,
+    y, new_state = chunked_gla(r, k, v, logw, p["u"][heads], chunk=chunk,
                                state=state)
     # per-head group norm, then silu(g) gating
     yf = y.float()
     mu = yf.mean(-1, keepdim=True)
     var = yf.var(-1, keepdim=True, unbiased=False)
-    yn = (yf - mu) * torch.rsqrt(var + 1e-5) * p["gn"]["scale"].float()
+    yn = (yf - mu) * torch.rsqrt(var + 1e-5) \
+        * p["gn"]["scale"][heads].float()
     out = (F.silu(g) * yn).to(x.dtype)
     w = p["w_out"]
-    out = matmul(out.reshape(B, S, h * hd), w.reshape(h * hd, D))
-    return out.to(x.dtype), (x[:, -1], new_state)
+    out = matmul(out.reshape(B, S, hl * hd), w.reshape(hl * hd, D))
+    return coll.model_psum(out, ctx).to(x.dtype), (x[:, -1], new_state)
 
 
 def rwkv_cmix_init(gen, cfg: ModelConfig, device):
@@ -195,16 +210,25 @@ def rwkv_cmix_init(gen, cfg: ModelConfig, device):
     }
 
 
-def rwkv_cmix_apply(p, x, *, prev=None):
+def rwkv_cmix_apply(p, x, *, prev=None, ctx=None):
     """x: (B, S, D). Returns (y, last x). The products round to x's dtype
-    where the JAX package's bf16 products do."""
+    where the JAX package's bf16 products do.
+
+    Under tensor parallelism ``wk`` (D, F), ``wv`` (F, D) and ``wr`` (D,
+    D) are all column blocks (the JAX package's rule splits a 2-D
+    channel-mix weight's last dim, and its ``w_out`` rule never matches
+    ``wv``): the rank's block of ``k`` is gathered whole before ``wv``,
+    and its D block of the output is gathered after the gate. Every
+    column is computed as on one device: no partial sum crosses ranks."""
     dt = x.dtype
     xx = _shift(x, prev)
     xk = x + (xx - x) * p["mu_k"].to(dt)
     xr = x + (xx - x) * p["mu_r"].to(dt)
     k = torch.square(F.relu(matmul(xk, p["wk"]).to(dt)))
+    k = coll.model_gather(k, ctx, -1)
     r = torch.sigmoid(matmul(xr, p["wr"]).to(dt).float()).to(dt)
-    return r * matmul(k, p["wv"]).to(dt), x[:, -1]
+    y = r * matmul(k, p["wv"]).to(dt)
+    return coll.model_gather(y, ctx, -1), x[:, -1]
 
 
 # ---------------------------------------------------------------------------

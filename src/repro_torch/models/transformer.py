@@ -9,15 +9,22 @@ Python loop over layer views: :func:`stack_apply` for serving,
 :func:`stack_train` (with the MoE aux loss and remat) for training.
 
 Megatron tensor parallelism (a context whose model axis has more than
-one rank, each holding its blocks: ``sharding.param_blocks``) runs the
-dense and MoE families: each block works on its rank's heads and
-``d_ff`` block and sums over the model axis after ``out_proj`` and the
-MLP; an MoE block takes the JAX package's dispatch (``ep_shardmap``:
-:func:`moe.moe_apply_ep_shardmap` or :func:`moe.moe_apply_tp_shardmap`
-for a stateless or prefill block, else :func:`moe.moe_apply`); and with
-``ctx.sp`` a stateless stack keeps the residual split over the sequence
-on the model axis between the blocks (Megatron sequence parallelism:
-gathered before attention and the MLP, reduce-scattered after them).
+one rank, each holding its blocks: ``sharding.param_blocks``) serves
+every family and trains the dense and MoE ones: each block works on its
+rank's heads and ``d_ff`` block and sums over the model axis after
+``out_proj`` and the MLP; an MoE block takes the JAX package's dispatch
+(``ep_shardmap``: :func:`moe.moe_apply_ep_shardmap` or
+:func:`moe.moe_apply_tp_shardmap` for a stateless or prefill block, else
+:func:`moe.moe_apply`); and with ``ctx.sp`` a stateless stack keeps the
+residual split over the sequence on the model axis between the blocks
+(Megatron sequence parallelism: gathered before attention and the MLP,
+reduce-scattered after them). The RWKV6 block runs its time mix on the
+rank's heads (``ssm.rwkv_tmix_apply``) and gathers its channel mix's
+column blocks (``ssm.rwkv_cmix_apply``); the hybrid's Mamba branch,
+replicated, runs whole on every rank and joins attention after
+``out_proj``'s sum, its state gathered from (and cut back to) the
+rank's heads where :func:`mamba_state_split` says the model axis splits
+it.
 """
 from __future__ import annotations
 
@@ -56,20 +63,44 @@ def check_family(cfg: ModelConfig) -> None:
         )
 
 
-TP_FAMILIES = ("dense", "moe")
+TP_TRAIN_FAMILIES = ("dense", "moe")  # trained under tensor parallelism
 
 
 def check_tp(cfg: ModelConfig, ctx: ParallelContext) -> None:
-    """Refuse what tensor parallelism does not run yet: families other
-    than dense and MoE (their ``tmix``/``cmix``/Mamba blocks, M-RoPE
-    media, codebooks), and fsdp (the params' data-axis blocks)."""
+    """Refuse what tensor parallelism does not run: fsdp (the params'
+    data-axis blocks), and an RWKV6 model whose heads the model axis does
+    not divide (its time-mix projections split on heads)."""
     check_family(cfg)
     if ctx.mesh is not None and ctx.fsdp:
         raise NotImplementedError("fsdp parameter blocks are not ported")
-    if coll.tensor_parallel(ctx) and cfg.family not in TP_FAMILIES:
+    if coll.tensor_parallel(ctx) and cfg.family == "ssm" \
+            and ssm_mod._heads(cfg)[0] % ctx.tp:
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism runs the "
-            f"{' and '.join(TP_FAMILIES)} families, not {cfg.family}")
+            f"{cfg.name}: {ssm_mod._heads(cfg)[0]} RWKV6 heads do not "
+            f"split over {ctx.tp} model ranks")
+
+
+def check_tp_train(cfg: ModelConfig, ctx: ParallelContext) -> None:
+    """:func:`check_tp`, and refuse training under tensor parallelism of
+    a family other than dense and MoE: the backward of the RWKV6 block's
+    gathers and of the replicated Mamba branch is not ported
+    (``ROADMAP.md`` queue 1, item 3b)."""
+    check_tp(cfg, ctx)
+    if coll.tensor_parallel(ctx) and cfg.family not in TP_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training under tensor parallelism runs the "
+            f"{' and '.join(TP_TRAIN_FAMILIES)} families, not {cfg.family} "
+            f"(ROADMAP.md queue 1, item 3b)")
+
+
+def mamba_state_split(cfg: ModelConfig, ctx: ParallelContext) -> bool:
+    """Whether a rank holds its block of the hybrid's Mamba state heads
+    (``din / 64``): under tensor parallelism when the model axis divides
+    them, as ``model.decode_state_specs`` splits them. The branch's
+    parameters are replicated, so every rank gathers the whole state
+    before the branch and keeps its block after it."""
+    return cfg.family == "hybrid" and coll.tensor_parallel(ctx) \
+        and (cfg.d_model * cfg.ssm_expand // 64) % ctx.tp == 0
 
 
 # ---------------------------------------------------------------------------
@@ -123,13 +154,16 @@ def layer_state_zeros(cfg: ModelConfig, plan: HeadPlan, batch: int,
     ``s`` are f32 whatever the dtype: ssm (B, H, hd, hd) with the token
     shifts ``tshift``/``cshift`` (B, D); hybrid (B, din / 64, ssm_state,
     64) beside its attention ring. Under tensor parallelism the rings
-    hold this rank's ``plan.kv_phys / tp`` kv heads
+    hold this rank's ``plan.kv_phys / tp`` kv heads, and ``s`` its heads
+    of an ssm state, or of a hybrid's where :func:`mamba_state_split`
     (``model.decode_state_specs``)."""
     check_family(cfg)
     dt = dtype_of(cfg.dtype)
     hd = cfg.resolved_head_dim
     if cfg.family == "ssm":
         h, shd = ssm_mod._heads(cfg)
+        if coll.tensor_parallel(ctx):  # check_tp: the model axis divides h
+            h //= ctx.tp
         return {
             "s": torch.zeros((batch, h, shd, shd), dtype=F32, device=device),
             "tshift": torch.zeros((batch, cfg.d_model), dtype=dt,
@@ -150,9 +184,11 @@ def layer_state_zeros(cfg: ModelConfig, plan: HeadPlan, batch: int,
           "pos": torch.full((batch, sc), -1, dtype=torch.int32,
                             device=device)}
     if cfg.family == "hybrid":
-        din = cfg.d_model * cfg.ssm_expand
-        st["s"] = torch.zeros((batch, din // 64, cfg.ssm_state, 64),
-                              dtype=F32, device=device)
+        hm = cfg.d_model * cfg.ssm_expand // 64
+        if mamba_state_split(cfg, ctx):
+            hm //= ctx.tp
+        st["s"] = torch.zeros((batch, hm, cfg.ssm_state, 64), dtype=F32,
+                              device=device)
     return st
 
 
@@ -361,7 +397,7 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
         h = coll.model_gather(h, ctx, 1)
     S = h.shape[1]
     if cfg.family == "ssm":
-        out = _rwkv_block(params, x, h, cfg, state, decode, gla_chunk)
+        out = _rwkv_block(params, x, h, cfg, state, decode, gla_chunk, ctx)
         return (*out, _zero_aux(x)) if with_aux else out
     new_state = dict(state) if state is not None else None
 
@@ -400,19 +436,23 @@ def block_apply(params, x, cfg: ModelConfig, plan: HeadPlan,
         elif emit_kv:
             new_state = {"k": k, "v": v}  # raw prompt kv, no staging
 
-    if cfg.family == "hybrid":  # the Mamba half, averaged with attention
+    if cfg.family == "hybrid":
+        # the Mamba half, averaged with attention: replicated, it runs
+        # whole on every rank and joins after out_proj's model-axis sum
+        split = state is not None and mamba_state_split(cfg, ctx)
+        s_in = None if state is None else state["s"]
+        if split:
+            s_in = coll.model_gather(s_in, ctx, 1)
         if decode:
-            sy, s_new = ssm_mod.mamba_step(params["ssm"], h[:, 0], cfg,
-                                           state["s"])
+            sy, s_new = ssm_mod.mamba_step(params["ssm"], h[:, 0], cfg, s_in)
             sy = sy[:, None]
         else:
-            sy, s_new = ssm_mod.mamba_apply(
-                params["ssm"], h, cfg,
-                state=None if state is None else state["s"],
-                chunk=gla_chunk)
+            sy, s_new = ssm_mod.mamba_apply(params["ssm"], h, cfg,
+                                            state=s_in, chunk=gla_chunk)
         att = (att + sy) * 0.5
         if new_state is not None:
-            new_state["s"] = s_new
+            new_state["s"] = coll.model_block(s_new, ctx, 1).contiguous() \
+                if split else s_new
 
     x = x + att
     h2 = rmsnorm(ln2, x, cfg.norm_eps)
@@ -451,17 +491,22 @@ def _zero_aux(x):
     return torch.zeros((), dtype=F32, device=x.device)
 
 
-def _rwkv_block(params, x, h, cfg, state, decode, gla_chunk):
+def _rwkv_block(params, x, h, cfg, state, decode, gla_chunk, ctx=None):
     """The attention-free RWKV6 block: time mix, then channel mix, each
-    token-shifted against the carried last token when decoding."""
+    token-shifted against the carried last token when decoding. Under
+    tensor parallelism the time mix runs the rank's heads (``state["s"]``
+    holds them) and the channel mix gathers its column blocks; the
+    residual and the token shifts are whole on every rank."""
     y, (tlast, s_new) = ssm_mod.rwkv_tmix_apply(
         params["tmix"], h, cfg,
         prev=state["tshift"] if decode else None,
-        state=None if state is None else state["s"], chunk=gla_chunk)
+        state=None if state is None else state["s"], chunk=gla_chunk,
+        ctx=ctx)
     x = x + y
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     y2, clast = ssm_mod.rwkv_cmix_apply(
-        params["cmix"], h2, prev=state["cshift"] if decode else None)
+        params["cmix"], h2, prev=state["cshift"] if decode else None,
+        ctx=ctx)
     if state is None:
         return x + y2, None
     return x + y2, {"s": s_new, "tshift": tlast, "cshift": clast}
@@ -503,8 +548,9 @@ def stack_train(layers, x, cfg: ModelConfig, plan: HeadPlan,
     ``jax.checkpoint`` of the scan body). Returns (y, aux): the MoE aux
     losses summed over the layers in order from f32 zero. With ``ctx.sp``
     under tensor parallelism the blocks run sequence-parallel (``x`` and
-    ``y`` whole)."""
-    check_tp(cfg, ctx)
+    ``y`` whole). Under tensor parallelism it runs the dense and MoE
+    families only (:func:`check_tp_train`)."""
+    check_tp_train(cfg, ctx)
     sp = _seq_parallel(ctx, x)
 
     def body(lp, h):

@@ -24,6 +24,15 @@ between the tiers happen at the engine-step boundary (:func:`swap_out`,
 Updates write the pool tensors IN PLACE and return the state (the JAX
 package donates the pool instead): clone a state first where the old one
 is still needed.
+
+**Over data ranks** (the LM engine's slots split over them) every rank
+holds the whole allocator, page table, lengths and residency and takes
+every slot's allocation in the same order, so all ranks hold the same
+integers; the page data a rank writes are its own slots' only
+(``rows`` of :func:`append_token_batch`, ``own`` of
+:func:`prefill_into_pages`, ``k=None`` in :func:`swap_in`), and its
+:class:`HostColdTier` parks only its slots' pages. A page another rank's
+slot holds is stale here, and no walk of this rank reads it.
 """
 from __future__ import annotations
 
@@ -149,12 +158,14 @@ def ensure_capacity_batch(state: PagedKVState, cfg: PagedKVConfig, need):
 
 
 def append_token_batch(state: PagedKVState, cfg: PagedKVConfig, k_new, v_new,
-                       mask):
+                       mask, rows: Optional[slice] = None):
     """Append one token's kv for every masked sequence at once, in place.
 
     k_new/v_new: (L, B, KVH, HD); mask: (B,) bool. Pages must already be
     mapped (:func:`ensure_capacity_batch`); unmapped targets are dropped
-    and COLD sequences never append."""
+    and COLD sequences never append. With ``rows`` (a slice of the B
+    sequences: a data rank's) k_new/v_new hold those rows only and only
+    their pages are written; every masked sequence's length advances."""
     ln = state.lengths
     mask = mask & (state.residency == HOT)
     b = ln.shape[0]
@@ -162,8 +173,9 @@ def append_token_batch(state: PagedKVState, cfg: PagedKVConfig, k_new, v_new,
     page = state.page_table[torch.arange(b, device=ln.device), col.long()]
     live = mask & (page >= 0)
     off = ln % cfg.page_size
-    _write_pages(state.k_pages, page, off, k_new, live)
-    _write_pages(state.v_pages, page, off, v_new, live)
+    w = slice(0, b) if rows is None else rows
+    _write_pages(state.k_pages, page[w], off[w], k_new, live[w])
+    _write_pages(state.v_pages, page[w], off[w], v_new, live[w])
     return state._replace(lengths=ln + live.to(I32))
 
 
@@ -195,13 +207,15 @@ def release_batch(state: PagedKVState, cfg: PagedKVConfig, mask):
 
 
 def prefill_into_pages(state: PagedKVState, cfg: PagedKVConfig, slot_ids,
-                       k, v, mask):
+                       k, v, mask, own=None):
     """Land prompt kv directly into pages for a batch of admitted slots.
 
     slot_ids: (A,) target sequences; k/v: (L, A, P, KVH, HD); mask: (A,)
     which admissions are real. Allocates ``ceil(P / page_size)`` pages per
     masked slot, all or nothing across the batch, writes the P tokens and
-    sets the lengths. Returns (state, ok (A,))."""
+    sets the lengths. ``own`` (A,) bool, when given, limits the page
+    writes to those admissions (a data rank's slots); the allocation is
+    every masked admission's. Returns (state, ok (A,))."""
     a, p = k.shape[1], k.shape[2]
     ps = cfg.page_size
     npg = -(-p // ps)
@@ -228,7 +242,7 @@ def prefill_into_pages(state: PagedKVState, cfg: PagedKVConfig, slot_ids,
     # token t -> (page[t // ps], t % ps)
     tok = torch.arange(p, device=dev)
     tok_page = pages.reshape(a, npg)[:, tok // ps]  # (A, P)
-    live = mask[:, None].expand(a, p)
+    live = (mask if own is None else mask & own)[:, None].expand(a, p)
     off = (tok % ps).expand(a, p)
     _write_pages(state.k_pages, tok_page, off, k, live)
     _write_pages(state.v_pages, tok_page, off, v, live)
@@ -310,8 +324,9 @@ def swap_in(state: PagedKVState, cfg: PagedKVConfig, seq: int, k, v):
     """Restore a COLD sequence's pages (resume): allocate
     ``ceil(len / PS)`` fresh pages off the free-stack top (generally other
     ids than the evicted ones: the row is rebuilt), write the page data in
-    place and mark it HOT. Returns ``(state, ok)``; ok False (state
-    unchanged) when ``seq`` is not COLD or the pool cannot cover it."""
+    place (none with ``k`` and ``v`` None: another data rank's slot) and
+    mark it HOT. Returns ``(state, ok)``; ok False (state unchanged) when
+    ``seq`` is not COLD or the pool cannot cover it."""
     npg = (state.lengths[seq] + cfg.page_size - 1) // cfg.page_size
     ok = (state.residency[seq] == COLD) & (state.lengths[seq] > 0) \
         & (npg <= state.free_top)
@@ -322,8 +337,9 @@ def swap_in(state: PagedKVState, cfg: PagedKVConfig, seq: int, k, v):
     pages = state.free_stack[src.long()]
     table = state.page_table.clone()
     table[seq] = torch.where(take, pages, state.page_table[seq])
-    _write_pages(state.k_pages, pages, None, k, take)
-    _write_pages(state.v_pages, pages, None, v, take)
+    if k is not None:
+        _write_pages(state.k_pages, pages, None, k, take)
+        _write_pages(state.v_pages, pages, None, v, take)
     residency = state.residency.clone()
     residency[seq] = torch.where(ok, HOT, state.residency[seq])
     return state._replace(
@@ -358,10 +374,16 @@ class HostColdTier:
     placement see one pool. The tier is part of the persistence domain:
     :meth:`state_arrays` / :meth:`restore_arrays` round-trip the slabs and
     the allocator through the durability snapshot and WAL
-    (``fault.recovery``), in the JAX package's layout."""
+    (``fault.recovery``), in the JAX package's layout.
+
+    ``slots`` (a range; None = every slot) names the slots whose pages
+    this tier parks: a data rank's. The allocator (host page ids, free
+    list, eviction order, counters) runs for every slot, the same on
+    every rank; the slabs and the budget take only the named slots'
+    pages (the bytes this rank parks)."""
 
     def __init__(self, cfg: PagedKVConfig, host_pages: int,
-                 dtype=torch.float32, budget=None):
+                 dtype=torch.float32, budget=None, slots=None):
         self.cfg = cfg
         self.dtype = dtype
         self.host_pages = int(host_pages)
@@ -377,6 +399,11 @@ class HostColdTier:
         self.restores = 0
         self.budget = budget
         self.budget_refusals = 0
+        self.slots = slots
+
+    def parks(self, slot: int) -> bool:
+        """Whether this tier holds ``slot``'s page data."""
+        return self.slots is None or int(slot) in self.slots
 
     @property
     def page_bytes(self) -> int:
@@ -398,26 +425,29 @@ class HostColdTier:
         ``swap_out`` frees device pages, so a refusal never loses kv."""
         if int(slot) in self.slot_pages or not self.can_store(n_pages):
             return False
-        if self.budget is not None and \
+        if self.budget is not None and self.parks(slot) and \
                 self.budget.free("dram") < n_pages * self.page_bytes:
             return False
         return True
 
     def store(self, slot: int, k, v, n_pages: int) -> bool:
         """Park ``n_pages`` of swap_out's (L, MaxP, PS, ...) buffers for
-        ``slot``: the copy to the host happens here."""
+        ``slot``: the copy to the host happens here (for a slot this tier
+        does not park, only its host page ids are taken)."""
         slot, n_pages = int(slot), int(n_pages)
         if slot in self.slot_pages or not self.can_store(n_pages):
             return False
-        if self.budget is not None and not self.budget.reserve(
+        own = self.parks(slot)
+        if self.budget is not None and own and not self.budget.reserve(
                 f"cold:{slot}", n_pages * self.page_bytes):
             self.budget_refusals += 1
             return False
-        kd, vd = _host_bits(k), _host_bits(v)
         ids = [self.free.pop() for _ in range(n_pages)]
-        for i, hp in enumerate(ids):
-            self.k[:, hp] = kd[:, i]
-            self.v[:, hp] = vd[:, i]
+        if own:
+            kd, vd = _host_bits(k), _host_bits(v)
+            for i, hp in enumerate(ids):
+                self.k[:, hp] = kd[:, i]
+                self.v[:, hp] = vd[:, i]
         self.slot_pages[slot] = ids
         self.order.append(slot)
         self.evictions += 1
@@ -522,7 +552,9 @@ class HostColdTier:
         if self.budget is not None:
             self.budget.release_prefix("cold:")
             for s, ids in self.slot_pages.items():
-                self.budget.reserve(f"cold:{s}", len(ids) * self.page_bytes)
+                if self.parks(s):
+                    self.budget.reserve(f"cold:{s}",
+                                        len(ids) * self.page_bytes)
 
 
 # ---------------------------------------------------------------------------

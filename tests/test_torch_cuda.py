@@ -1334,6 +1334,67 @@ def test_tensor_parallel_decode_on_two_ranks_equals_one_process(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,s,hd,window", [
+    (14, 2, 512, 128, 0),  # qwen2-vl-7b's 28 q / 4 kv a rank: G 7
+    (15, 3, 2048, 64, 1024),  # hymba-1.5b's 25 / 5 padded to 30 / 6
+    (16, 16, 512, 64, 0),  # musicgen-large's 32 / 32: G 1
+])
+def test_flash_attention_at_the_tensor_parallel_family_rank_shapes(
+        dev, dtype, h, kvh, s, hd, window):
+    """The flash prefill at one of two tensor-parallel ranks' heads of the
+    vlm, hybrid (hd 64 with its window: the TMA path) and audio families,
+    two prompts, against the plain version."""
+    rng = np.random.default_rng(h + kvh + s)
+    host = [torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            .to(dtype) for shape in ((2, h, s, hd), (2, kvh, s, hd),
+                                     (2, kvh, s, hd))]
+    want = ref.flash_attention(*host, window=window)
+    fa.reset_launches()
+    got = fa.flash_attention(*(t.to(dev) for t in host), window=window)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1
+    tol = 2e-5 if dtype == torch.float32 else LM_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_data_parallel_paged_decode_on_two_ranks_equals_one_process(dev):
+    """The paged path of the engine over 2 data ranks sharing the card
+    (gloo, host-staged): every rank prefills the whole batch and writes
+    its rows' pages, then walks its rows with ``paged_attention_stats``;
+    each rank's logits are its rows of the one-process run on the card
+    within the bf16 kernel tolerance of the largest |logit|, and each
+    rank launched flash once a layer and the walk once a layer a step."""
+    import torch_dp_engine_ranks as dpr
+    import torch_tp_ranks as tpr
+    from repro_torch.models import model
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import local_context
+
+    cfg = tpr.cuda_tp_config()
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(1, cfg.vocab_size, dpr.CUDA_PROMPTS).astype(
+        np.int32)
+    with torch.no_grad():
+        ctx = local_context()
+        want = dpr.cuda_paged_decode(model.init_params(3, cfg, ctx, "cuda"),
+                                     cfg, ctx, torch.from_numpy(prompts).cuda())
+    out = coll.launch(dpr.cuda_dp_paged_rank, 2, backend="gloo",
+                      args=(prompts,), timeout=300)
+    seen = []
+    for logits, launches, (lo, hi) in out:
+        assert launches == {"flash_attention": cfg.num_layers,
+                            "paged_attention_stats":
+                                cfg.num_layers * dpr.CUDA_STEPS}, launches
+        for a, b in zip(logits, want):
+            b = b.float().numpy()[lo:hi]
+            assert np.abs(a - b).max() <= LM_TOL[torch.bfloat16] \
+                * np.abs(b).max()
+        seen += range(lo, hi)
+    assert seen == list(range(dpr.CUDA_PROMPTS[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attention_stats_at_the_vlm_serve_shape(dev, dtype):
     """The paged walk at qwen2-vl-7b's decode shape: B 32, KVH 4, G 7,
     hd 128, 40-page tables of 16-token pages."""

@@ -353,14 +353,12 @@ def test_engine_matches_jax_engine_on_every_rank(refs, ranks):
 
 
 def test_tensor_parallel_refuses_what_it_does_not_run(monkeypatch):
-    """tp > 1 refuses the families it does not split yet, a sequence the
-    model axis does not divide under sp, a data-parallel engine (dense or
-    paged: the paged pool runs at a data axis of 1) and the paged swap
-    service under a mesh; gradients flow (the model-axis collectives
-    have a backward, held against one process in
+    """tp > 1 refuses training of the families it serves only (the vlm,
+    audio, ssm and hybrid: ``stack_train``, naming the training item)
+    and a sequence the model axis does not divide under sp; the rank's
+    page pool holds its kv heads; gradients flow (the model-axis
+    collectives have a backward, held against one process in
     ``test_torch_tp_train.py``)."""
-    from repro_torch.core import engine as eng
-    from repro_torch.launch import serve
     from repro_torch.models import model, transformer as tf
     from repro_torch.parallel.sharding import Mesh, ParallelContext
 
@@ -369,23 +367,13 @@ def test_tensor_parallel_refuses_what_it_does_not_run(monkeypatch):
                  "musicgen-large"):
         cfg = configs.reduced(configs.get_config(arch))
         with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            tf.check_tp(cfg, ctx)
+            tf.check_tp_train(cfg, ctx)
     cfg = tpr.case_config("dense_1x2")
     pcfg = model.make_paged_kv_config(cfg, ctx, num_pages=4, page_size=2,
                                       max_pages_per_seq=2)
     assert pcfg.kv_heads == tf.plan_for(cfg, ctx).kv_phys // 2
-    dp_ctx = ParallelContext(mesh=Mesh((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="data-parallel LM engine"):
-        model.make_paged_kv_config(cfg, dp_ctx, num_pages=4, page_size=2,
-                                   max_pages_per_seq=2)
-    swap = eng.LMEngineConfig(paged=True, slots=2, prompt_len=2, gen_len=2,
-                              page_size=2, host_pages=8)
-    with pytest.raises(NotImplementedError, match="swap service"):
-        eng.make_swap_service(swap, cfg, ctx)
     with pytest.raises(ValueError, match="sequence parallelism"):
         tf._seq_parallel(ctx._replace(sp=True), torch.zeros((1, 3, 4)))
-    with pytest.raises(NotImplementedError, match="model axis only"):
-        serve.engine_step(cfg, dp_ctx, eng.LMEngineConfig(), {}, "cpu")
     # model_psum at tp 2 now returns a gradient: the transport stands in
     # for two ranks holding equal partials (the sum doubles them), and the
     # backward is the identity
